@@ -3,7 +3,7 @@
 // Native counterpart of radx_tpu/oracle/cpu.py, mirroring the reference's
 // three-phase per-pass pipeline (counting -> partition -> scattering,
 // include/radx/radx_implement.inl:421-447 in /root/reference) with the same
-// tile blocking, so Python/NumPy, C++ and Pallas paths are all bit-exact
+// tile blocking, so the Python/NumPy and C++ oracles are bit-exact
 // against each other.  Unlike the reference's oracle (std::stable_sort, timed
 // but never compared — src/test/sort.cpp:452-469), this one is the
 // correctness gate.

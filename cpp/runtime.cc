@@ -3,7 +3,7 @@
 // The reference's host runtime is C++ (ComputeFramework + TestSort,
 // /root/reference/src/test/sort.cpp): it generates the workload (shuffled
 // 0..N-1 permutation, sort.cpp:348-350), stages buffers, and (only) eyeballs
-// the result.  This is the TPU framework's native equivalent, exposed via a
+// the result.  This is the engine's native equivalent, exposed via a
 // C ABI for ctypes: multi-threaded key generation and O(N) validation that
 // run at memory speed, so 256M-1B-row benchmark configs aren't bottlenecked
 // on NumPy, plus the correctness check the reference never performs.

@@ -1,28 +1,20 @@
-"""radx_tpu — a TPU-native vectorized query-execution engine.
+"""radx_tpu — a vectorized query-execution engine in JAX.
 
-Built from scratch (JAX / XLA / Pallas / pjit) with the capabilities of the
-RadX Vulkan radix-sort library (/root/reference), re-designed TPU-first:
+Built from scratch (JAX / XLA) with the capabilities of the RadX Vulkan
+radix-sort library (BenjaminXiang/RadX):
 
-  * Single-chip sorts of uint32/int32/float32 keys (+ payloads) as Pallas
-    kernels.  Two engines behind one API (ops/sort.py): the flagship
-    bitonic merge network (static data movement — rolls, lane gathers,
-    block exchanges), and the radix distribution sort
-    (strategy="radix", kernels/radix_sort.py) realizing the reference's
-    counting → partition → scattering pipeline at chunk granularity:
-    per-chunk digit histograms + hierarchical scans (kernels/radix.py,
-    the counting.comp/partition.comp analogues on the MXU) drive
-    skew-aware splitters, the slot-pack kernel scatters runs, and
-    per-bucket VMEM slot-merges finish.  RadX's subgroup-partitioned
-    ballot ranking
-    (ballotlib.glsl:112-144) becomes one-hot / nibble-outer-product matmul
-    ranking on the MXU in VMEM tiles (kernels/radix.py, kernels/aggregate.py).
-  * Relational operators on the same primitives: filter, hash aggregate
-    (sort-based + dense MXU one-hot contraction), merge/hash join.
-  * Multi-chip / multi-host scaling via jax.sharding.Mesh + shard_map
+  * Sorts of uint32/int32/float32/64-bit keys, with payloads, stable
+    argsort and multi-column keys (ops/sort.py).  The engine is a stable
+    ``lax.sort``, which XLA's GPU backend lowers to CUB's LSD radix sort —
+    the design RadX implements with per-workgroup histograms, prefix scans
+    and ballot-ranked scatters.
+  * Relational operators on the same primitives (ops/core.py): filter,
+    sparse and dense group-by, inner/left/multi-match joins, top-k,
+    distinct, and single-jit lazy pipelines (ops/lazy.py).
+  * Multi-device sort via jax.sharding.Mesh + shard_map
     (parallel/dist_sort.py): local sort → all_gather'ed sample splitters
     (skew-bounded: every device receives ≤ N/D + N/(64·D) keys under any
-    distribution) → slot-packed ppermute exchange waves overlapped with
-    pairwise run merges.
+    distribution) → slot-packed ppermute exchange waves → one local sort.
   * Bit-exact CPU oracles (NumPy + native C++) as the correctness gate.
 """
 
@@ -30,33 +22,25 @@ import os as _os
 
 
 def _enable_compile_cache():
-    """Persistent XLA/Mosaic compile cache — the analogue of the reference's
-    vk::PipelineCache (radx_implement.inl:269-273), which it creates but
-    never serializes.  Ours persists across processes: remote Mosaic
-    compiles of the unrolled sort networks cost minutes, once."""
-    # CPU-only runs (CI interpret mode; conftest sets JAX_PLATFORMS=cpu)
-    # must NOT use the persistent cache: interpret-mode executables
-    # serialize to multi-GB blobs whose compression pass segfaults the
-    # process (observed on test_relational's join_merge_multi).  This JAX
-    # version has no max-entry-size knob, so gate on the platform instead.
-    if _os.environ.get("JAX_PLATFORMS", "").strip().lower() == "cpu":
+    """Persistent XLA compile cache in the checkout (``.jax_cache/``) — the
+    analogue of the reference's vk::PipelineCache (radx_implement.inl:
+    269-273), which it creates but never serializes.  Where
+    JAX_COMPILATION_CACHE_DIR is set, JAX reads it itself and nothing is
+    set here."""
+    if "JAX_COMPILATION_CACHE_DIR" in _os.environ:
         return
-    try:
-        import jax
+    import jax
 
-        cache = _os.environ.get(
-            "RADX_TPU_CACHE",
-            _os.path.join(_os.path.dirname(_os.path.dirname(__file__)), ".jax_cache"),
-        )
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
-    except Exception:  # pragma: no cover - cache is best-effort
-        pass
+    repo = _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__)))
+    jax.config.update(
+        "jax_compilation_cache_dir", _os.path.join(repo, ".jax_cache")
+    )
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
 
 
 _enable_compile_cache()
 
-from radx_tpu.config import SortConfig, DEFAULT, tuned  # noqa: F401,E402
+from radx_tpu.config import SortConfig, DEFAULT  # noqa: F401,E402
 from radx_tpu.ops.sort import (  # noqa: F401,E402
     argsort,
     sort,
@@ -72,4 +56,4 @@ from radx_tpu.ops.groupby import groupby, groupby_dense  # noqa: F401,E402
 from radx_tpu.ops.table import Table  # noqa: F401,E402
 from radx_tpu.ops.lazy import LazyTable  # noqa: F401,E402
 
-__version__ = "0.4.0"
+__version__ = "0.5.0"

@@ -1,94 +1,43 @@
-"""Single source of truth for every grid/tile constant in the engine.
+"""Parameters of the tiled LSD radix sort that the oracles model.
 
 The reference hard-codes its grid constants in *two* places (host
 ``groupX=108`` at radx_internal.hpp:143 vs. shader ``WG_COUNT`` 108/144/72 at
 {RadX2-SM7-DEV,radix,radix-rapid}/partition.comp:14) and ships with a live
-host/shader mismatch on two of its four shader variants.  We derive every
-constant — digit width, pass count, tile shape, scatter strategy — from one
-frozen dataclass shared by the host orchestration and the Pallas kernels, so
-that class of bug cannot exist here.
+host/shader mismatch on two of its four shader variants.  Here the digit
+width, pass count and tile size live in one frozen dataclass that the NumPy
+and C++ oracles (``oracle/``) share, so that class of bug cannot exist.
+
+The device operators take no configuration: each has one plain XLA path.
 
 Reference parity notes:
   * ``bits_per_pass`` replaces the compile-time digit-width fork
     (8 bits / 4 passes on Turing, RadX2-SM7-DEV/includes.glsl:21-26;
-    2 bits / 16 passes elsewhere, radix/includes.glsl:34-38).  Here it is a
-    runtime-static parameter of a single kernel family.
-  * ``tile_rows`` × 128 lanes is our analogue of RadX's per-workgroup block
-    (``get_blocks_info``, RadX2-SM7-DEV/includes.glsl:171-182): each Pallas
-    grid step owns one contiguous tile of keys.
+    2 bits / 16 passes elsewhere, radix/includes.glsl:34-38).
+  * ``tile_rows`` × 128 keys is the analogue of RadX's per-workgroup block
+    (``get_blocks_info``, RadX2-SM7-DEV/includes.glsl:171-182).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 
-LANES = 128  # TPU vector lane count — last dim of every VMEM tile.
+TILE_LANES = 128  # keys per tile row in the oracles' tiling
 
 
 @dataclasses.dataclass(frozen=True)
 class SortConfig:
-    """Configuration for the LSD radix sort pipeline.
+    """Configuration of the oracles' LSD radix sort.
 
     Attributes:
       key_bits: total key width (uint32 → 32).
       bits_per_pass: digit width per LSD pass (8 → 256 radices, 4 passes).
-      tile_rows: sublane rows per tile; tile holds ``tile_rows * 128`` keys
-        (radix-pipeline granularity: histograms, ranks, relational ops).
-      strategy: single-chip sort strategy —
-        ``"bitonic"``: flagship Pallas bitonic merge network (static data
-        movement; kernels/bitonic.py);
-        ``"radix"``: the radix distribution sort (kernels/radix_sort.py)
-        mirroring the reference's counting/partition/scattering pipeline
-        (histogram-driven splitters + slot-packed scatter + per-bucket
-        merges); falls back to the bitonic network (lax.cond) when the
-        size is unsupported or a slot overflows under adversarial skew.
-        Measured slower than the bitonic network at every single-chip
-        size, and the round-5 primitive probes closed the question for
-        good (comparison-free rank/permute ingredients measure 1.7-3.6
-        G elems/s vs the network's ~2 ps/elem substages — NOTES.md
-        round 5 post-mortem): the bitonic network is FINAL as the
-        single-chip engine; "radix" is the algorithmic-parity /
-        skew-analysis path, covering the full range to 2^28 since the
-        round-5 pack-kernel SMEM fix;
-        ``"lax"``: jax.lax.sort fallback — the analogue of RadX's
-        lowest-common-denominator "universal" SPIR-V variant.
-      chunk_rows: bitonic VMEM chunk height; one chunk = chunk_rows*128
-        elements resident in VMEM per grid step.
-      interpret: run Pallas kernels in interpreter mode (CPU CI — the
-        analogue of RadX's lowest-common-denominator "universal" SPIR-V
-        variant, radx_shaders.hpp:10,109).
+      tile_rows: rows per tile; a tile holds ``tile_rows * 128`` keys
+        (the granularity of the per-tile histograms and ranks).
     """
 
     key_bits: int = 32
     bits_per_pass: int = 8
     tile_rows: int = 16
-    strategy: str = "bitonic"
-    chunk_rows: int = 1024  # bitonic VMEM chunk = chunk_rows*128 elements
-    # chunk for stable / multi-plane sorts: the unrolled network's compile
-    # time scales with substages x planes, so stable paths use a smaller
-    # chunk (more cross/finish stages, all of which share tiny kernels).
-    stable_chunk_rows: int = 256
-    # chunk for 2-plane num_cmp=1 rider sorts (groupby's (key, value),
-    # sort_pairs(assume_unique=True)): measured v5e optimum 512
-    # (0.963 G pairs/s vs 0.911 @1024, 2^22 — NOTES.md r4)
-    rider_chunk_rows: int = 512
-    # chunk for 2-plane num_cmp=2 stable sorts (argsort's (key, iota),
-    # sort_u64's (hi, lo)): measured v5e optimum 512 (0.917/0.666 G at
-    # 2^22/2^26 vs 0.864/0.645 @256 — NOTES.md r5); 3+-plane stable paths
-    # stay at stable_chunk_rows (512 measured SLOWER there, and compile
-    # time is superlinear in substages × planes)
-    stable2_chunk_rows: int = 512
-    # chunk for the mask-compaction kernel (kernels/compact.py): one grid
-    # step compacts compact_chunk_rows*128 elements in VMEM
-    compact_chunk_rows: int = 1024
-    # chunk for the top_k selection phase (ops/topk.py, num_cmp=2
-    # (key, index) chunk sort): measured v5e optimum 512 (1.84 G keys/s at
-    # 2^26 vs 1.74 @256, 1.49 @1024, 1.29 @128 — NOTES.md r5).  A distinct
-    # kernel shape from the rider/stable paths; tools/warm_cache.py
-    # precompiles it ("topk" config)
-    topk_chunk_rows: int = 512
-    interpret: bool | None = None  # None → auto (interpret iff no TPU)
 
     @property
     def radix(self) -> int:
@@ -100,7 +49,7 @@ class SortConfig:
 
     @property
     def tile_elems(self) -> int:
-        return self.tile_rows * LANES
+        return self.tile_rows * TILE_LANES
 
     @property
     def digit_mask(self) -> int:
@@ -111,95 +60,6 @@ class SortConfig:
             raise ValueError(f"unsupported bits_per_pass={self.bits_per_pass}")
         if self.tile_rows < 1:
             raise ValueError("tile_rows must be >= 1")
-        if self.strategy not in ("bitonic", "radix", "lax"):
-            raise ValueError(f"unknown sort strategy {self.strategy!r}")
-        for cr in (self.chunk_rows, self.stable_chunk_rows,
-                   self.rider_chunk_rows, self.compact_chunk_rows,
-                   self.topk_chunk_rows, self.stable2_chunk_rows):
-            if cr < 8 or cr & (cr - 1):
-                raise ValueError("chunk rows must be a power of two >= 8")
-
-
-@functools.cache
-def _has_tpu() -> bool:
-    import jax
-
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:  # pragma: no cover - no backend at all
-        return False
-
-
-# --- per-generation tuning -------------------------------------------------
-#
-# The analogue of the reference's vendor dispatch table
-# (radx_shaders.hpp:87-111: vendorID → shader variant) + per-vendor subgroup
-# size (radx_device.hpp:53-60: turing/vega10 → 16, nvidia/rdna → 32).  Keys
-# are `jax.devices()[0].device_kind` prefixes (longest prefix wins); values
-# override SortConfig fields.  Entries are produced by `tools/autotune.py`
-# sweeps on real hardware; generations we have not measured inherit the v5e
-# optimum (same VPU/VMEM architecture scaled) rather than failing.
-TUNING: dict[str, dict] = {
-    # measured on v5e (idle-chip k=17 chained sweep, 2026-08-18, NOTES.md):
-    # 1024-row chunks beat 2048 at every size 2^22-2^27 for the keys-only
-    # network (1.74/1.60/1.40/1.21/1.10 G keys/s at 2^22/23/24/26/27); 256
-    # keeps the multi-plane (stable/pairs) network's Mosaic compile time
-    # bounded (compile superlinear in substages × planes) and measured
-    # fastest (0.68 G pairs/s at 2^22 vs 0.58 @128 / 0.61 @512).
-    "TPU v5 lite": {"chunk_rows": 1024, "stable_chunk_rows": 256,
-                    "rider_chunk_rows": 512},
-    "TPU v5p": {"chunk_rows": 1024, "stable_chunk_rows": 256,
-                "rider_chunk_rows": 512},
-    "TPU v5": {"chunk_rows": 1024, "stable_chunk_rows": 256,
-               "rider_chunk_rows": 512},
-    "TPU v6 lite": {"chunk_rows": 1024, "stable_chunk_rows": 256,
-                    "rider_chunk_rows": 512},
-    "TPU v6": {"chunk_rows": 1024, "stable_chunk_rows": 256,
-               "rider_chunk_rows": 512},
-    "TPU v4": {"chunk_rows": 1024, "stable_chunk_rows": 256,
-               "rider_chunk_rows": 512},
-    # interpret-mode CI (CPU): tiny chunks keep interpreter wall time sane
-    "cpu": {"chunk_rows": 64, "stable_chunk_rows": 64,
-            "rider_chunk_rows": 64, "compact_chunk_rows": 64,
-            "topk_chunk_rows": 64, "stable2_chunk_rows": 64},
-}
-
-
-@functools.cache
-def device_kind() -> str:
-    """Current accelerator generation string (e.g. 'TPU v5 lite'), or the
-    platform name when not on TPU."""
-    import jax
-
-    try:
-        d = jax.devices()[0]
-        return d.device_kind if d.platform == "tpu" else d.platform
-    except Exception:  # pragma: no cover - no backend at all
-        return "cpu"
-
-
-def tuned(**overrides) -> SortConfig:
-    """SortConfig specialized for the current accelerator generation.
-
-    Longest-prefix match of `device_kind()` against TUNING, then explicit
-    overrides.  Unknown generations fall back to SortConfig defaults — the
-    same graceful degradation as the reference's 'universal' shader variant.
-    """
-    kind = device_kind()
-    params: dict = {}
-    for prefix in sorted(TUNING, key=len, reverse=True):
-        if kind.startswith(prefix):
-            params.update(TUNING[prefix])
-            break
-    params.update(overrides)
-    return SortConfig(**params)
-
-
-def resolve_interpret(cfg: SortConfig) -> bool:
-    """Interpreter mode: explicit flag wins, else interpret iff not on TPU."""
-    if cfg.interpret is not None:
-        return cfg.interpret
-    return not _has_tpu()
 
 
 def cdiv(a: int, b: int) -> int:

@@ -1,10 +1,10 @@
 """Chunked (streaming) relational operators — BASELINE config 3 at 1B rows.
 
-A 2^30-row uint32 table (4 GB/column) plus the engine's working planes does
-not fit a 16 GB-HBM chip in one call; these wrappers stream host-resident
-columns through the single-call operators in slabs, merging the per-slab
-results on the host (filter) or with a recursive second aggregation pass
-(groupby).  The reference has no analogue — its maxElementCount is fixed at
+These wrappers stream host-resident columns through the single-call
+operators in slabs, merging the per-slab results on the host (filter), with
+a recursive second aggregation pass (groupby), or with a pairwise device
+merge tree (sort).  They bound device memory by the slab size instead of
+the table size.  The reference has no analogue — its maxElementCount is fixed at
 initialize() time (radx_internal.hpp:115-119) and it never exceeds one
 buffer — but BASELINE.json demands the 1B-row configs on a single host.
 
@@ -24,21 +24,19 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from radx_tpu.config import SortConfig, tuned
 from radx_tpu.ops.filter import filter_columns
 from radx_tpu.ops.groupby import groupby
 
 _SLAB = 1 << 28
 
 
-def filter_chunked(mask, cols, cfg: SortConfig | None = None, slab: int = _SLAB):
+def filter_chunked(mask, cols, slab: int = _SLAB):
     """Stable compaction of host-resident 32-bit columns by a 0/1 mask.
 
     mask/cols: numpy arrays (kept on host; slabs are shipped to the device
     one at a time).  Returns (cols_out, count) with cols_out host numpy
     arrays of length count — exact, no padding.
     """
-    cfg = cfg or tuned()
     mask = np.asarray(mask)
     n = mask.shape[0]
     outs = [[] for _ in cols]
@@ -47,7 +45,7 @@ def filter_chunked(mask, cols, cfg: SortConfig | None = None, slab: int = _SLAB)
         hi = min(lo + slab, n)
         m_d = jnp.asarray(mask[lo:hi])
         c_d = [jnp.asarray(np.asarray(c)[lo:hi]) for c in cols]
-        comp, cnt = filter_columns(m_d, c_d, cfg)
+        comp, cnt = filter_columns(m_d, c_d)
         cnt = int(cnt)
         total += cnt
         for o, c in zip(outs, comp):
@@ -59,7 +57,6 @@ def groupby_chunked(
     keys,
     values,
     agg: str = "sum",
-    cfg: SortConfig | None = None,
     slab: int = _SLAB,
 ):
     """Aggregate host-resident values per unique uint32 key, slab-streamed.
@@ -69,12 +66,11 @@ def groupby_chunked(
     (recursively chunked when the partials themselves exceed one slab, e.g.
     all-unique keys) — `count` partials merge via `sum`.
     """
-    cfg = cfg or tuned()
     keys = np.asarray(keys)
     values = np.asarray(values)
     n = keys.shape[0]
     if n <= slab:
-        uk, out, ng = groupby(jnp.asarray(keys), jnp.asarray(values), agg, cfg)
+        uk, out, ng = groupby(jnp.asarray(keys), jnp.asarray(values), agg)
         ng = int(ng)
         return (
             np.asarray(jax.device_get(uk[:ng])),
@@ -85,7 +81,7 @@ def groupby_chunked(
     for lo in range(0, n, slab):
         hi = min(lo + slab, n)
         uk, out, ng = groupby(
-            jnp.asarray(keys[lo:hi]), jnp.asarray(values[lo:hi]), agg, cfg
+            jnp.asarray(keys[lo:hi]), jnp.asarray(values[lo:hi]), agg
         )
         ng = int(ng)
         uks.append(np.asarray(jax.device_get(uk[:ng])))
@@ -98,92 +94,40 @@ def groupby_chunked(
         # device merge needs the very global sort we're slab-dodging), so
         # finish the (already slab-reduced) merge on the host — exact.
         return _host_merge(merged_k, merged_v, merge_agg)
-    return groupby_chunked(merged_k, merged_v, merge_agg, cfg, slab)
+    return groupby_chunked(merged_k, merged_v, merge_agg, slab)
 
 
-def sort_chunked(keys, cfg: SortConfig | None = None, slab: int = _SLAB):
+def sort_chunked(keys, slab: int = _SLAB):
     """Out-of-core ascending sort of host-resident uint32 keys.
 
-    Sizes beyond one device call (2^30 keys = 4 GB + working planes on a
-    16 GB-HBM chip) stream through the device twice-ish: each pow2 slab is
-    sorted on-device in the bitonic-run direction its merge position needs
-    (even ascending, odd descending — zero flip passes), then a pairwise
-    device merge tree (kernels/bitonic.merge_sorted_runs, O(L·log n_slabs)
-    work) folds runs until one ascending sequence remains.  Host RAM holds
-    the runs between levels; sentinel padding (key 0xFFFFFFFF) fills the
-    pow2 tail and is stripped from the result.
+    Each slab is sorted on the device; then a pairwise merge tree folds the
+    sorted runs, each merge one device sort of two concatenated runs, until
+    one run remains.  Host RAM holds the runs between levels, so the device
+    never holds more than two slabs.
 
     Closes the top of the 1M–1B parity range (BASELINE north star;
     the reference's maxElementCount contract, radx_internal.hpp:115-119).
     """
-    from radx_tpu.config import LANES, resolve_interpret
-    from radx_tpu.kernels import bitonic
-
-    cfg = cfg or tuned()
     keys = np.asarray(keys)
     if keys.dtype != np.uint32:
         raise TypeError("sort_chunked keys must be uint32")
-    n = keys.shape[0]
-    if slab & (slab - 1):
-        raise ValueError("slab must be a power of two")
-    if n <= slab:
-        from radx_tpu.ops import sort as sort_ops
-
-        return np.asarray(jax.device_get(sort_ops.sort(jnp.asarray(keys), cfg)))
-
-    interpret = resolve_interpret(cfg)
-    chunk_rows = cfg.chunk_rows
-    n_slabs = 1 << (-(-n // slab) - 1).bit_length()
-    log_slab = slab.bit_length() - 1
-
-    @jax.jit
-    def _slab_sort_asc(p):
-        return bitonic.sort_planes(
-            [p], chunk_rows, 1, interpret=interpret
-        )[0]
-
-    @jax.jit
-    def _slab_sort_desc(p):
-        return bitonic.sort_planes(
-            [p], chunk_rows, 1, interpret=interpret, descending=True
-        )[0]
-
-    def _merge(a, b, log_run, desc):
-        @jax.jit
-        def run(pa, pb):
-            plane = jnp.concatenate([pa, pb], axis=0)
-            return bitonic.merge_sorted_runs(
-                [plane], log_run, 1, chunk_rows,
-                descending=desc, interpret=interpret,
-            )[0]
-
-        return np.asarray(
-            jax.device_get(run(jnp.asarray(a), jnp.asarray(b)))
-        )
-
-    # slab sorts, alternating directions (host keeps biased i32 planes)
-    runs = []
-    for i in range(n_slabs):
-        lo = i * slab
-        buf = np.full((slab,), 0x7FFFFFFF, np.int32)
-        if lo < n:
-            seg = keys[lo : min(lo + slab, n)]
-            buf[: seg.shape[0]] = (seg ^ np.uint32(0x80000000)).view(np.int32)
-        plane = jnp.asarray(buf.reshape(-1, LANES))
-        out = _slab_sort_asc(plane) if i % 2 == 0 else _slab_sort_desc(plane)
-        runs.append(np.asarray(jax.device_get(out)))
-        del plane, out
-
-    # pairwise device merge tree; output run j must be ascending iff j even
-    log_run = log_slab
+    runs = [
+        np.asarray(jax.device_get(_sort_run(jnp.asarray(keys[lo : lo + slab]))))
+        for lo in range(0, keys.shape[0], slab)
+    ]
     while len(runs) > 1:
         runs = [
-            _merge(runs[j], runs[j + 1], log_run, desc=bool((j // 2) & 1))
+            np.asarray(jax.device_get(
+                _sort_run(jnp.asarray(np.concatenate(runs[j : j + 2])))
+            ))
             for j in range(0, len(runs), 2)
         ]
-        log_run += 1
-    out = runs[0].reshape(-1)[:n]
-    return out.view(np.uint32) ^ np.uint32(0x80000000)
+    return runs[0] if runs else keys
+
+
+@jax.jit
+def _sort_run(keys):
+    return jax.lax.sort(keys)
 
 
 def _host_merge(keys, vals, agg):

@@ -3,9 +3,9 @@ primitives.
 
 Query-executor surface (SELECT DISTINCT): absent from the reference (a bare
 sort library, SURVEY §2) but a standard demand on a sorted-data engine, and
-free to build here: sorted boundary detection is one shifted compare, and
-the compaction is the dedicated single-pass gather kernel
-(kernels/compact.py) that already powers filter and groupby.
+free to build here: sorted boundary detection is one shifted compare, and the
+compaction is the same prefix-sum scatter that powers filter and groupby
+(ops/core.py).
 
 Because XLA requires static shapes, both operators return padded arrays
 plus a valid count, like ops/filter.filter_columns; `Table.distinct` slices
@@ -19,52 +19,30 @@ import functools
 import jax
 import jax.numpy as jnp
 
-from radx_tpu.config import SortConfig, resolve_interpret, tuned
-from radx_tpu.kernels import compact
-from radx_tpu.ops.sort import (
-    _decode_keys,
-    _encode_keys,
-    _engine,
-    _key_plane,
-    _pad_len,
-    _SIGN,
-)
+from radx_tpu.ops import core
 
 
-@functools.partial(jax.jit, static_argnames=("cfg", "n", "with_counts"))
-def _unique_jit(enc, cfg: SortConfig, n: int, with_counts: bool):
-    total = _pad_len(n)
-    plane = _key_plane(enc, total)
-    if cfg.strategy == "lax":
-        s = jax.lax.sort(plane.reshape(-1))
-    else:
-        s = _engine([plane], cfg, 1, n)[0].reshape(-1)
-    s = s[:n]
-    first = jnp.concatenate(
-        [jnp.ones((1,), jnp.int32), (s[1:] != s[:-1]).astype(jnp.int32)]
-    )
+@functools.partial(jax.jit, static_argnames=("with_counts",))
+def _unique_jit(enc, with_counts: bool):
+    n = enc.shape[0]
+    s = jax.lax.sort(enc)
+    first = core.run_starts(s)
     cols = [s]
     if with_counts:
         cols.append(jax.lax.iota(jnp.int32, n))
-    rows_needed = max(8, 1 << (max(-(-n // 128), 1) - 1).bit_length())
-    c_rows = min(cfg.compact_chunk_rows, rows_needed)
-    outs, count = compact.compact_flat(
-        first, cols, c_rows, interpret=resolve_interpret(cfg)
-    )
-    uniq = (outs[0].astype(jnp.uint32)) ^ _SIGN
+    outs, count = core.compact(first, cols)
     if not with_counts:
-        return uniq, count
+        return outs[0], count
     # counts[g] = start of group g+1 minus start of group g; the last valid
     # group ends at n.  Tail entries (>= count) are garbage, like the keys.
     starts = outs[1]
     nexts = jnp.concatenate([starts[1:], starts[:1]])
     g = jax.lax.iota(jnp.int32, n)
     ends = jnp.where(g == count - 1, jnp.int32(n), nexts)
-    return uniq, ends - starts, count
+    return outs[0], ends - starts, count
 
 
-def unique(keys, return_counts: bool = False,
-           cfg: SortConfig | None = None):
+def unique(keys, return_counts: bool = False):
     """Sorted distinct values of a uint32 / int32 / float32 array.
 
     Returns (values, count) — or (values, counts, count) with
@@ -73,14 +51,10 @@ def unique(keys, return_counts: bool = False,
     engine's total order: -0.0 and +0.0 are distinct values, all NaN
     bit-patterns of one sign collapse per bit-pattern (bitwise dedup).
     """
-    cfg = cfg or tuned()
     keys = jnp.asarray(keys)
-    enc = _encode_keys(keys)
-    n = keys.shape[0]
-    if n == 0:
+    enc = core.encode_keys(keys)
+    if keys.shape[0] == 0:
         raise ValueError("unique needs at least one element")
-    res = _unique_jit(enc, cfg, n, return_counts)
-    vals = _decode_keys(res[0], keys.dtype)
-    if return_counts:
-        return vals, res[1], res[2]
-    return vals, res[1]
+    res = _unique_jit(enc, return_counts)
+    vals = core.decode_keys(res[0], keys.dtype)
+    return (vals, *res[1:])

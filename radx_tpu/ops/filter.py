@@ -1,54 +1,32 @@
 """Filter (predicate → compaction) — BASELINE config 3's first half.
 
-TPU-native design: compaction is a *stable partition*, i.e. a 1-bit radix
-pass — the degenerate case of the reference's per-digit rank-and-scatter
-(RadX2-SM7-DEV/scattering.comp:125-127).  Through round 3 it ran the
-bitonic pipeline on a composite (dropped-bit, index) key — log²(n)
-compare-exchange substages; round 4 replaced that with the dedicated
-single-pass gather kernel (kernels/compact.py: per-row leftpack + run
-merges + dynamic_update_slice stitch), measured ~4x faster at 2^22 and
-flat in mask density.  The reference has no relational layer at all; this
-is the "filter" operator demanded by BASELINE.json.
+Compaction is a *stable partition*, i.e. a 1-bit radix pass — the degenerate
+case of the reference's per-digit rank-and-scatter
+(RadX2-SM7-DEV/scattering.comp:125-127): a prefix sum of the mask ranks the
+kept rows, and one scatter per column moves them (ops/core.compact).  The
+reference has no relational layer at all; this is the "filter" operator
+demanded by BASELINE.json.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 
-from radx_tpu.config import LANES, SortConfig, resolve_interpret, tuned
-from radx_tpu.kernels import compact
+from radx_tpu.ops import core
 
 
-@functools.partial(jax.jit, static_argnames=("cfg", "n"))
-def _compact_jit(mask, cols, cfg: SortConfig, n: int):
-    """Stable compaction of i32-bitcastable columns by a 0/1 mask.
-
-    Returns ([i32 columns with kept rows first in original order], count);
-    rows past `count` are garbage (static shapes — XLA cannot return
-    data-dependent sizes).
-    """
-    rows_needed = max(8, 1 << (max(-(-n // LANES), 1) - 1).bit_length())
-    c_rows = min(cfg.compact_chunk_rows, rows_needed)
-    col_planes = [
-        jax.lax.bitcast_convert_type(c, jnp.int32) for c in cols
-    ]
-    outs, count = compact.compact_flat(
-        mask.astype(jnp.int32), col_planes, c_rows,
-        interpret=resolve_interpret(cfg),
-    )
-    return outs, count
+@jax.jit
+def _compact_jit(mask, cols):
+    return core.compact(mask, list(cols))
 
 
-def filter_columns(mask, cols, cfg: SortConfig | None = None):
+def filter_columns(mask, cols):
     """Stable compaction of 32-bit columns by a boolean/0-1 mask.
 
     Returns (cols_out, count): each column reordered so rows where mask!=0
-    occupy the first `count` slots in original order; the tail is garbage.
+    occupy the first `count` slots in original order; the tail is zero.
     """
-    cfg = cfg or tuned()
     mask = jnp.asarray(mask)
     cols = [jnp.asarray(c) for c in cols]
     n = mask.shape[0]
@@ -59,10 +37,6 @@ def filter_columns(mask, cols, cfg: SortConfig | None = None):
             raise TypeError("columns must be 32-bit dtypes")
     if n == 0:
         return cols, jnp.int32(0)
-    if n > 1 << 30:
-        raise ValueError("filter supports up to 2^30 rows per call")
-    compacted, count = _compact_jit(mask, cols, cfg, n)
-    return [
-        jax.lax.bitcast_convert_type(o, c.dtype)
-        for o, c in zip(compacted, cols)
-    ], count
+    if n >= 1 << 31:
+        raise ValueError("filter supports fewer than 2^31 rows per call")
+    return _compact_jit(mask, tuple(cols))

@@ -1,16 +1,26 @@
-"""Group-by aggregation (the BASELINE's "hash aggregate", TPU-native form).
+"""Group-by aggregation (the BASELINE's "hash aggregate").
 
-A hash table's random probes are hostile to the TPU memory system, and the
-engine already owns a fast sort — so aggregation is sort-based, the classic
-vector-machine equivalent with identical semantics: sort (key, value) pairs
-with the Pallas pipeline, mark run boundaries, and reduce each run with a
-segmented scan.  The digit-histogram machinery the reference uses per pass
-(counting.comp) reappears here as the boundary/segment bookkeeping.
+Two forms with one semantics:
 
-Aggregations: sum, count, min, max over uint32 / int32 / float32 values
-(payloads ride the sort as raw 32-bit planes; arithmetic runs in the value
-dtype).  Output is padded to the input length with `num_groups` valid rows
-(static shapes — XLA cannot return data-dependent sizes).
+  * ``groupby`` — sort-based: one stable (key, value) sort (a CUB pair sort
+    on the GPU), run boundaries by one shifted compare, and a segmented
+    scan that folds each run (ops/core.py).  The digit-histogram machinery
+    the reference uses per pass (counting.comp) reappears as the
+    boundary/segment bookkeeping.
+  * ``groupby_dense`` — for key spaces bounded by `bins`: the keys are the
+    segment ids, so one segment reduction (a scatter) of the unsorted rows
+    is the whole aggregate.
+
+Aggregations: sum, count, min, max over uint32 / int32 / float32 values.
+Integer sums wrap mod 2^32; min/max compare in the values' total order
+(float32: -inf < ... < -0.0 < +0.0 < ... < +inf < nan); float32 sums
+accumulate in float32 (groupby: a fixed tree order; groupby_dense: an
+unspecified order).  Outputs are padded to the input length with
+`num_groups` valid rows (static shapes — XLA cannot return data-dependent
+sizes).
+
+The cores take an optional traced `count` (rows at or past it are invalid),
+so the eager API and the lazy pipelines (ops/lazy.py) share them.
 """
 
 from __future__ import annotations
@@ -19,207 +29,138 @@ import functools
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
-from radx_tpu.config import LANES, SortConfig, resolve_interpret, tuned
-from radx_tpu.kernels import segscan
-from radx_tpu.ops import sort as sort_ops
+from radx_tpu.ops import core
 
-
-_NEUTRAL = {
-    # i32 bit patterns of each aggregation's neutral element per value dtype
-    ("sum", "uint32"): 0, ("sum", "int32"): 0, ("sum", "float32"): 0,
-    ("count", "uint32"): 0, ("count", "int32"): 0, ("count", "float32"): 0,
-    ("min", "uint32"): -1,  # 0xFFFFFFFF
-    ("min", "int32"): 0x7FFFFFFF,
-    ("min", "float32"): 0x7F800000,  # +inf
-    ("max", "uint32"): 0,
-    ("max", "int32"): -0x80000000,
-    ("max", "float32"): -0x00800000,  # 0xFF800000 = -inf
-}
+AGGS = ("sum", "count", "min", "max")
+MAX_BINS = 1 << 24
+SPREAD_SLOTS = 1 << 16  # scatter targets of the dense aggregate (at least)
 
 
-@functools.partial(jax.jit, static_argnames=("cfg", "agg"))
-def _groupby_jit(keys, values, cfg: SortConfig, agg: str):
-    """Sort-based aggregation with a single-pass Pallas segmented scan.
+def groupby_core(enc, values, count, agg: str):
+    """Sort-based aggregation of `values` by encoded uint32 keys `enc`.
 
-    Aggregation is commutative, so grouping needs no stability: the sort is
-    the 2-plane unstable (key, rider) pipeline (ops/sort._sort_rider_jit)
-    — ~1.5x cheaper in exchange work than the stable 3-plane (key, iota,
-    value) sort the engine used through round 3.  Pads carry key
-    0xFFFFFFFF with the aggregation's neutral element, so the real max-key
-    group aggregates exactly; the phantom all-pad group (present only when
-    no real key is 0xFFFFFFFF) is dropped from num_groups.
+    Invalid rows (at or past `count`; LazyTable rows are a valid prefix)
+    sort last (core.invalid_last), so the first `count` sorted rows are
+    exactly the valid ones.  Returns (unique encoded keys, aggregates,
+    num_groups)."""
+    if count is not None:
+        enc = core.invalid_last(enc, count)
+    sk, sv = core.sort_pairs_stable(enc, values)
+    first = core.run_starts(sk, count)
+    acc = core.run_aggregate(sv, first, agg)
+    (uk, out), num_groups = core.compact(core.run_ends(first, count), [sk, acc])
+    return uk, out, num_groups
 
-    No scatter-adds: jax.ops.segment_* lower to XLA scatter, which is
-    pathologically slow on TPU at 10^8+ rows (same class as the
-    searchsorted issue documented in ops/join.py).  Because the pairs are
-    sorted, each equal-key run is contiguous; kernels/segscan.py reduces
-    every run in ONE read+write of the array (the r1 doubling scan burned
-    log2(n) full-array HBM passes and OOM'd at 2^29).
-    """
+
+def dense_aggregate(keys, values, bins: int, agg: str, count=None):
+    """Per-bin aggregate and row count of `values` keyed by uint32 bin ids
+    (keys >= bins, and rows at or past `count`, are dropped).  Returns
+    (aggregates (bins,), counts (bins,) int32); empty bins hold the
+    reduction's identity.
+
+    Each bin is spread over `spread` slots (row i goes to slot i % spread)
+    so that at most SPREAD_SLOTS scatter targets share the rows: with few
+    bins, a plain scatter funnels every row's atomic update into the same
+    few addresses."""
     n = keys.shape[0]
+    spread = max(1, SPREAD_SLOTS // bins)
+    ids = jnp.where(keys < bins, keys, bins).astype(jnp.int32)
+    if count is not None:
+        ids = jnp.where(core.valid_rows(n, count), ids, bins)
+    ids = ids * spread + jax.lax.iota(jnp.int32, n) % spread
+    slots = bins * spread
+
+    def fold(scatter, x, reduce):
+        return reduce(scatter(x, ids, num_segments=slots).reshape(bins, spread),
+                      axis=1)
+
+    counts = fold(jax.ops.segment_sum, jnp.ones((n,), jnp.int32), jnp.sum)
     if agg == "count":
-        payload, op = jnp.ones((n,), jnp.int32), "sum"
-        acc_dtype = jnp.int32
-    else:
-        payload = jax.lax.bitcast_convert_type(values, jnp.int32)
-        op, acc_dtype = agg, values.dtype
-    neutral = _NEUTRAL[(agg, jnp.dtype(values.dtype).name)]
-    skeys, acc_bits = sort_ops._sort_rider_jit(keys, payload, cfg, n, neutral)
-    acc = jax.lax.bitcast_convert_type(acc_bits, acc_dtype)
-
-    acc = segscan.segscan_flat(
-        skeys, acc, op, cfg.chunk_rows, resolve_interpret(cfg)
-    )
-
-    nxt = jnp.concatenate([skeys[1:], skeys[:1] ^ jnp.uint32(1)])
-    is_last = skeys != nxt
-    is_last = is_last.at[-1].set(True)
-    num_groups = jnp.sum(is_last.astype(jnp.int32))
-    if skeys.shape[0] > n:  # padded: drop the phantom all-pad group
-        has_max = jnp.any(keys == jnp.uint32(0xFFFFFFFF))
-        num_groups = num_groups - jnp.where(has_max, 0, 1)
-    return skeys, acc, is_last, num_groups
-
-
-# np (not jnp): a module-level jnp scalar would execute a jit at import
-# time and initialize the XLA backend, breaking jax.distributed.initialize
-# in multi-host workers (must run before any backend touch).
-_SIGN = np.uint32(0x80000000)
-
-
-def _order_i32(values):
-    """Map uint32/int32/float32 values into order-isomorphic int32 (signed
-    compare order == value order) for the dense extrema kernel."""
-    from radx_tpu.ops import sort as sort_ops
-
-    enc = sort_ops._encode_keys(values)  # order-preserving uint32
-    return jax.lax.bitcast_convert_type(enc ^ _SIGN, jnp.int32)
-
-
-def _order_i32_decode(oi32, dtype):
-    from radx_tpu.ops import sort as sort_ops
-
-    enc = jax.lax.bitcast_convert_type(oi32, jnp.uint32) ^ _SIGN
-    return sort_ops._decode_keys(enc, dtype)
-
-
-@functools.partial(jax.jit, static_argnames=("cfg", "agg", "bins"))
-def _groupby_dense_jit(keys, values, cfg: SortConfig, agg: str, bins: int):
-    from radx_tpu.kernels import aggregate
-    from radx_tpu.ops.filter import _compact_jit
-
-    if agg in ("min", "max"):
-        ext, counts = aggregate.dense_extrema(
-            keys, _order_i32(values), bins=bins, is_min=(agg == "min"),
-            interpret=resolve_interpret(cfg),
-        )
-        agg_i32 = ext
-    else:
-        sums, counts = aggregate.dense_sums(
-            keys,
-            jax.lax.bitcast_convert_type(values, jnp.int32),
-            bins=bins,
-            interpret=resolve_interpret(cfg),
-        )
-        agg_col = counts if agg == "count" else sums
-        agg_i32 = jax.lax.bitcast_convert_type(agg_col, jnp.int32)
-    present = (counts > 0).astype(jnp.int32)
-    bin_ids = jax.lax.iota(jnp.int32, bins)
-    (uk, out), ng = _compact_jit(present, (bin_ids, agg_i32), cfg, bins)
-    return (
-        jax.lax.bitcast_convert_type(uk, jnp.uint32),
-        out,
-        ng,
-        jnp.max(keys, initial=jnp.uint32(0)) < jnp.uint32(bins),
-    )
-
-
-def groupby_dense(keys, values, agg: str = "sum",
-                  bins: int = 65536, cfg: SortConfig | None = None):
-    """MXU/VPU hash-aggregate for key spaces bounded by `bins` — the dense
-    fast path (kernels/aggregate.py): one streaming pass instead of a stable
-    sort + segmented scan.  sum/count run as one-hot matmul contractions
-    (bins <= 2^16, `bins` MACs per row per plane); min/max run as per-bin
-    compare-select folds (bins <= 2^13) over order-isomorphic int32.  The
-    smaller the key space the faster it runs — pass the tightest pow2 bound
-    you have.  Semantics match `groupby` exactly: sum on uint32/int32 wraps
-    mod 2^32; min/max cover uint32/int32/float32; count takes any 32-bit
-    values.  Raises ValueError at runtime if any key >= bins.
-    """
-    cfg = cfg or tuned()
-    keys = jnp.asarray(keys)
-    values = jnp.asarray(values)
-    key_dtype = keys.dtype
-    if keys.dtype == jnp.int32:
-        # bin ids must be in [0, bins); negatives bitcast to huge uint32
-        # and fail the existing in_range gate below
-        keys = jax.lax.bitcast_convert_type(keys, jnp.uint32)
-    if keys.dtype != jnp.uint32:
-        raise TypeError("dense groupby keys must be uint32/int32 bin ids")
-    if values.dtype not in (jnp.uint32, jnp.int32, jnp.float32):
-        raise TypeError("dense groupby values must be uint32/int32/float32")
-    if agg == "sum" and values.dtype == jnp.float32:
-        raise TypeError(
-            "dense float32 sums are inexact on the MXU — use groupby"
-        )
-    if values.shape != keys.shape:
-        raise ValueError("values must match keys shape")
-    if agg not in ("sum", "count", "min", "max"):
-        raise ValueError(f"unknown agg {agg!r}")
-    max_bins = 8192 if agg in ("min", "max") else 65536
-    if not (128 <= bins <= max_bins and bins & (bins - 1) == 0):
-        raise ValueError(
-            f"bins must be a power of two in [128, {max_bins}] for {agg!r}"
-        )
-    if keys.shape[0] == 0:
-        return keys, values, jnp.int32(0)
-    uk, out, ng, in_range = _groupby_dense_jit(keys, values, cfg, agg, bins)
-    if not bool(in_range):
-        raise ValueError(f"groupby_dense requires every key < bins={bins}")
-    if key_dtype == jnp.int32:  # bin ids < 2^16: bitcast is the identity
-        uk = jax.lax.bitcast_convert_type(uk, jnp.int32)
-    if agg == "count":
-        return uk, out, ng
+        return counts, counts
     if agg == "sum":
-        return uk, jax.lax.bitcast_convert_type(out, values.dtype), ng
-    return uk, _order_i32_decode(out, values.dtype), ng
+        return fold(jax.ops.segment_sum, values, jnp.sum), counts
+    scatter, reduce = (
+        (jax.ops.segment_min, jnp.min) if agg == "min"
+        else (jax.ops.segment_max, jnp.max)
+    )
+    ext = fold(scatter, core.order_i32(values), reduce)
+    return core.order_i32_decode(ext, values.dtype), counts
 
 
-def groupby(keys, values, agg: str = "sum", cfg: SortConfig | None = None):
-    """Aggregate `values` per unique key (uint32 / int32 / float32 keys).
+def groupby_dense_core(keys, values, count, agg: str, bins: int):
+    """dense_aggregate, compacted to the present bins.  Returns (bin ids
+    uint32, aggregates, num_groups)."""
+    out, counts = dense_aggregate(keys, values, bins, agg, count)
+    bin_ids = jax.lax.iota(jnp.uint32, bins)
+    (uk, out), ng = core.compact(counts > 0, [bin_ids, out])
+    return uk, out, ng
 
-    Returns (unique_keys, aggregates, num_groups): arrays padded to at
-    least len(keys) (the engine's pow2 padding) — rows beyond num_groups
-    are garbage.  Unique keys are ascending (in the key dtype's order;
-    float32 keys use the total order -inf < ... < +inf < nan, with -0.0
-    and +0.0 DISTINCT groups — bit-pattern grouping).  uint32 sums wrap at
-    2^32 (like C unsigned arithmetic); float32 sums accumulate in f32 in a
-    deterministic (input-dependent) order — grouping is unstable, so the
-    within-group addition order is not the input order.
 
-    Non-uint32 keys run through the same order-preserving bit encodings as
-    sort_any (ops/sort._encode_keys) — the uint32 engine never changes
-    (the reference is uint32-only, SURVEY §2; dtype coverage is part of
-    the query-executor surface).
-    """
-    cfg = cfg or tuned()
-    keys = jnp.asarray(keys)
-    values = jnp.asarray(values)
-    enc = sort_ops._encode_keys(keys)  # validates the key dtype
+@functools.partial(jax.jit, static_argnames=("agg",))
+def _groupby_jit(enc, values, agg: str):
+    return groupby_core(enc, values, None, agg)
+
+
+@functools.partial(jax.jit, static_argnames=("agg", "bins"))
+def _groupby_dense_jit(keys, values, agg: str, bins: int):
+    uk, out, ng = groupby_dense_core(keys, values, None, agg, bins)
+    return uk, out, ng, jnp.max(keys) < jnp.uint32(bins)
+
+
+def _check(values, keys, agg):
     if values.dtype not in (jnp.uint32, jnp.int32, jnp.float32):
         raise TypeError("values must be uint32/int32/float32")
     if values.shape != keys.shape:
         raise ValueError("values must match keys shape")
-    if agg not in ("sum", "count", "min", "max"):
+    if agg not in AGGS:
         raise ValueError(f"unknown agg {agg!r}")
+
+
+def groupby_dense(keys, values, agg: str = "sum", bins: int = 65536):
+    """Aggregate for key spaces bounded by `bins`: keys are uint32/int32 bin
+    ids in [0, bins), and the result lists the present bins in ascending
+    order.  One segment reduction over the rows, no sort.  Semantics match
+    `groupby` exactly.  Raises ValueError if any key >= bins.
+    """
+    keys = jnp.asarray(keys)
+    values = jnp.asarray(values)
+    key_dtype = keys.dtype
+    if keys.dtype == jnp.int32:
+        # negatives bitcast to huge uint32 and fail the range check below
+        keys = jax.lax.bitcast_convert_type(keys, jnp.uint32)
+    if keys.dtype != jnp.uint32:
+        raise TypeError("dense groupby keys must be uint32/int32 bin ids")
+    _check(values, keys, agg)
+    if not 1 <= bins <= MAX_BINS:
+        raise ValueError(f"bins must be in [1, {MAX_BINS}]")
     if keys.shape[0] == 0:
         return keys, values, jnp.int32(0)
-    skeys, acc, is_last, num_groups = _groupby_jit(enc, values, cfg, agg)
-    from radx_tpu.ops.filter import filter_columns
+    uk, out, ng, in_range = _groupby_dense_jit(keys, values, agg, bins)
+    if not bool(in_range):
+        raise ValueError(f"groupby_dense requires every key < bins={bins}")
+    if key_dtype == jnp.int32:  # bin ids < 2^24: bitcast is the identity
+        uk = jax.lax.bitcast_convert_type(uk, jnp.int32)
+    return uk, out, ng
 
-    (uk, out), _ = filter_columns(
-        is_last.astype(jnp.int32), [skeys, acc], cfg
-    )
-    return sort_ops._decode_keys(uk, keys.dtype), out, num_groups
+
+def groupby(keys, values, agg: str = "sum"):
+    """Aggregate `values` per unique key (uint32 / int32 / float32 keys).
+
+    Returns (unique_keys, aggregates, num_groups): arrays of len(keys) —
+    rows beyond num_groups are garbage.  Unique keys are ascending (in the
+    key dtype's order; float32 keys use the total order -inf < ... < +inf <
+    nan, with -0.0 and +0.0 DISTINCT groups — bit-pattern grouping).
+
+    Non-uint32 keys run through the same order-preserving bit encodings as
+    sort_any (ops/core.encode_keys) — the reference is uint32-only, SURVEY
+    §2; dtype coverage is part of the query-executor surface.
+    """
+    keys = jnp.asarray(keys)
+    values = jnp.asarray(values)
+    enc = core.encode_keys(keys)  # validates the key dtype
+    _check(values, keys, agg)
+    if keys.shape[0] == 0:
+        return keys, values, jnp.int32(0)
+    uk, out, ng = _groupby_jit(enc, values, agg)
+    return core.decode_keys(uk, keys.dtype), out, ng

@@ -2,14 +2,14 @@
 
 The eager `Table` operators call ``int(count)`` after every step to slice
 exact row counts — a host sync per operator that blocks fusing a whole
-query into one XLA program (VERDICT round 1, weak #9).  `LazyTable` keeps
-the padded arrays + a *traced* row count instead:
+query into one XLA program.  `LazyTable` keeps the padded arrays + a
+*traced* row count instead:
 
   invariant: rows [0, count) are the valid rows, in operator order; rows
-  beyond `count` are garbage.  Every operator threads validity through the
-  sort planes (invalid rows get key +inf / tiebreak n+i, so they sort after
-  every valid row and never merge with a valid run), so no host sync is
-  needed between operators.  `collect()` is the single sync at the end.
+  beyond `count` are garbage.  Every operator core (ops/groupby.py,
+  ops/join.py, ops/topk.py, ops/core.py) takes the traced count, so no host
+  sync is needed between operators.  `collect()` is the single sync at the
+  end.
 
 `LazyTable` is a pytree — whole pipelines jit/vmap/grad-compose:
 
@@ -19,12 +19,10 @@ the padded arrays + a *traced* row count instead:
         agg = kept.groupby("store", "amount", "sum")
         return agg.sort_by("sum", descending=True)
 
-The validity trick: with num_cmp=2 lexicographic compare the engine sorts
-(key_plane, tie_plane).  Valid row i gets (key_i, i); invalid row i gets
-(0x7FFFFFFF, n + i).  A valid row whose biased key happens to equal
-0x7FFFFFFF still wins every tie against invalid rows (i < n <= n + j), so
-validity never collides with legal key values — the same
-position-not-sentinel doctrine as ops/groupby.py.
+The validity trick for sorts (ops/core.invalid_last): invalid rows get the
+maximum key.  The sort is stable and the valid rows are a prefix, so every
+invalid row lands behind every valid row, including valid rows whose key is
+the maximum — validity never collides with legal key values.
 """
 
 from __future__ import annotations
@@ -32,324 +30,79 @@ from __future__ import annotations
 import functools
 
 import jax
-import numpy as np
 import jax.numpy as jnp
 
-from radx_tpu.config import LANES, SortConfig, resolve_interpret, tuned
-from radx_tpu.kernels import bitonic, segscan
-from radx_tpu.ops import sort as sort_ops
-from radx_tpu.ops.filter import _compact_jit
-
-_I32_MAX = 0x7FFFFFFF
-_SIGN = np.uint32(0x80000000)
-
-
-def _total(n: int) -> int:
-    return 1 << (max(n, 1024) - 1).bit_length()
-
-
-def _plane(x, fill, total):
-    return (
-        jnp.full((total,), fill, jnp.int32).at[: x.shape[0]].set(x)
-        .reshape(total // LANES, LANES)
-    )
-
-
-def _valid_key_tie(enc_keys, count, n):
-    """(key', tie') planes realizing the validity ordering contract."""
-    pos = jax.lax.iota(jnp.int32, n)
-    valid = pos < count
-    kb = jnp.where(valid, (enc_keys ^ _SIGN).astype(jnp.int32),
-                   jnp.int32(_I32_MAX))
-    tie = jnp.where(valid, pos, pos + jnp.int32(n))
-    return kb, tie
+from radx_tpu.ops import core
+from radx_tpu.ops import groupby as groupby_ops
+from radx_tpu.ops import join as join_ops
+from radx_tpu.ops.topk import top_k_core
 
 
 # --- operator cores (all shapes static; `count`s traced) -------------------
 
 
-def filter_lazy(mask, cols, count, cfg: SortConfig, n: int):
+@jax.jit
+def filter_lazy(mask, cols, count):
     """Stable compaction by mask ∧ validity. Returns (cols, new_count)."""
-    pos = jax.lax.iota(jnp.int32, n)
-    combined = (mask.astype(jnp.int32) != 0) & (pos < count)
-    return _compact_jit(combined.astype(jnp.int32), tuple(cols), cfg, n)
+    keep = (mask != 0) & core.valid_rows(mask.shape[0], count)
+    return core.compact(keep, list(cols))
 
 
-@functools.partial(jax.jit, static_argnames=("cfg", "agg", "n"))
-def groupby_lazy(keys, values, count, agg: str, cfg: SortConfig, n: int):
-    """Validity-aware sort-based aggregation (see ops/groupby.py for the
-    eager algorithm notes). Returns (unique_keys, aggregates, num_groups),
-    padded to n.
+@functools.partial(jax.jit, static_argnames=("agg",))
+def groupby_lazy(enc, values, count, agg: str):
+    """ops/groupby.groupby_core with a traced row count."""
+    return groupby_ops.groupby_core(enc, values, count, agg)
 
-    Like the eager path, grouping rides the 2-plane UNSTABLE (key, rider)
-    sort: aggregation is commutative, so the validity tie plane is not
-    needed — invalid rows get key 0xFFFFFFFF with the aggregation's
-    neutral element as rider, merge into the real max-key group without
-    perturbing its aggregate, and the phantom all-invalid group (only when
-    no valid key is 0xFFFFFFFF and invalid rows exist) is dropped from
-    num_groups."""
-    from radx_tpu.ops.groupby import _NEUTRAL
 
-    total = _total(n)
-    pos = jax.lax.iota(jnp.int32, n)
-    valid = pos < count
-    kb = jnp.where(
-        valid, (keys ^ _SIGN).astype(jnp.int32), jnp.int32(_I32_MAX)
-    )
-    if agg == "count":
-        payload, op = valid.astype(jnp.int32), "sum"
-        acc_dtype = jnp.int32
-        neutral = 0
-    else:
-        neutral = _NEUTRAL[(agg, jnp.dtype(values.dtype).name)]
-        payload = jnp.where(
-            valid,
-            jax.lax.bitcast_convert_type(values, jnp.int32),
-            jnp.int32(neutral),
-        )
-        op, acc_dtype = agg, values.dtype
-    planes = [_plane(kb, _I32_MAX, total), _plane(payload, neutral, total)]
-    outs = bitonic.sort_planes(
-        planes, cfg.rider_chunk_rows, num_cmp=1,
-        interpret=resolve_interpret(cfg), unique=False,
-    )
-    skb = outs[0].reshape(-1)
-    skeys = jax.lax.bitcast_convert_type(skb, jnp.uint32) ^ _SIGN
-    acc = jax.lax.bitcast_convert_type(outs[1].reshape(-1), acc_dtype)
+@functools.partial(jax.jit, static_argnames=("agg", "bins"))
+def groupby_lazy_dense(keys, values, count, agg: str, bins: int):
+    """ops/groupby.groupby_dense_core with a traced row count.  Keys past
+    the bound among the valid prefix are the caller's contract (they are
+    dropped; only the eager API, which may sync, checks them)."""
+    return groupby_ops.groupby_dense_core(keys, values, count, agg, bins)
 
-    # one-pass Pallas segmented scan (kernels/segscan.py); neutral riders
-    # on invalid rows cannot perturb any group's aggregate
-    acc = segscan.segscan_flat(
-        skeys, acc, op, cfg.chunk_rows, resolve_interpret(cfg)
-    )
 
-    nxt = jnp.concatenate([skeys[1:], skeys[:1] ^ jnp.uint32(1)])
-    is_last = skeys != nxt
-    is_last = is_last.at[-1].set(True)
-    has_max = jnp.any(valid & (keys == jnp.uint32(0xFFFFFFFF)))
-    phantom = (count < total) & jnp.logical_not(has_max)
-    num_groups = jnp.sum(is_last.astype(jnp.int32)) - jnp.where(
-        phantom, 1, 0
-    )
-    (uk, out), _ = _compact_jit(
-        is_last.astype(jnp.int32),
-        (jax.lax.bitcast_convert_type(skeys, jnp.int32),
-         jax.lax.bitcast_convert_type(acc, jnp.int32)),
-        cfg, total,
-    )
-    out_dtype = jnp.int32 if agg == "count" else values.dtype
-    return (
-        jax.lax.bitcast_convert_type(uk[:n], jnp.uint32),
-        jax.lax.bitcast_convert_type(out[:n], out_dtype),
-        num_groups,
+@jax.jit
+def join_lazy(build_keys, build_vals, bcount, probe_keys, probe_vals, pcount):
+    """ops/join.join_core (inner) with traced row counts. Returns (keys,
+    build_vals, probe_vals, count) padded to nb + np; duplicate build keys
+    resolve to the last valid build row."""
+    return join_ops.join_core(
+        build_keys, build_vals, bcount, probe_keys, probe_vals, pcount
     )
 
 
-@functools.partial(jax.jit, static_argnames=("cfg", "agg", "bins"))
-def groupby_lazy_dense(keys, values, count, agg: str, cfg: SortConfig,
-                       bins: int):
-    """Dense MXU/VPU aggregation with a traced valid-row count (LazyTable
-    rows are a compacted valid prefix, so `count` maps directly onto the
-    dense kernels' n_valid gate — no sort, no sync).  See
-    ops/groupby.groupby_dense for semantics; out-of-range keys among the
-    valid prefix are the caller's contract (garbage rows past `count` are
-    ignored by construction).  Aggregates come back in `values.dtype`
-    (min/max decoded from the kernel's order-isomorphic i32 space, sums
-    bitcast) — count stays int32."""
-    from radx_tpu.kernels import aggregate
-    from radx_tpu.ops.groupby import _order_i32, _order_i32_decode
-
-    interpret = resolve_interpret(cfg)
-    if agg in ("min", "max"):
-        ext, counts = aggregate.dense_extrema(
-            keys, _order_i32(values), bins=bins, is_min=(agg == "min"),
-            interpret=interpret, n_valid=count,
-        )
-        agg_i32 = ext
-    else:
-        sums, counts = aggregate.dense_sums(
-            keys,
-            jax.lax.bitcast_convert_type(values, jnp.int32),
-            bins=bins,
-            interpret=interpret,
-            n_valid=count,
-        )
-        agg_i32 = jax.lax.bitcast_convert_type(
-            counts if agg == "count" else sums, jnp.int32
-        )
-    present = (counts > 0).astype(jnp.int32)
-    bin_ids = jax.lax.iota(jnp.int32, bins)
-    (uk, out), ng = _compact_jit(present, (bin_ids, agg_i32), cfg, bins)
-    if agg in ("min", "max"):
-        out = _order_i32_decode(out, values.dtype)
-    elif agg == "sum":
-        out = jax.lax.bitcast_convert_type(out, values.dtype)
-    return jax.lax.bitcast_convert_type(uk, jnp.uint32), out, ng
-
-
-@functools.partial(jax.jit, static_argnames=("cfg", "nb", "np_"))
-def join_lazy(build_keys, build_vals, bcount, probe_keys, probe_vals,
-              pcount, cfg: SortConfig, nb: int, np_: int):
-    """Validity-aware single-match merge join (ops/join.py::_join_merge_jit
-    with traced row counts). Returns (keys, build_vals, probe_vals, count)
-    padded to nb + np_; duplicate build keys resolve to the last valid
-    build row."""
-    n = nb + np_
-    total = _total(n)
-    keys = jnp.concatenate([build_keys, probe_keys])
-    # tiebreak: build rows 0..nb-1 sort before probe rows 2^30 + i; validity
-    # is positional (LazyTable rows are compacted), so traced-count compares
-    # on the *sorted* tie plane recover realness after the sort.
-    tie = jnp.concatenate(
-        [
-            jax.lax.iota(jnp.int32, nb),
-            jax.lax.iota(jnp.int32, np_) + jnp.int32(1 << 30),
-        ]
-    )
-    bvals = jnp.concatenate([build_vals, jnp.zeros((np_,), build_vals.dtype)])
-    pvals = jnp.concatenate([jnp.zeros((nb,), probe_vals.dtype), probe_vals])
-
-    planes = [
-        _plane((keys ^ _SIGN).astype(jnp.int32), _I32_MAX, total),
-        _plane(tie, _I32_MAX, total),
-        _plane(jax.lax.bitcast_convert_type(bvals, jnp.int32), 0, total),
-        _plane(jax.lax.bitcast_convert_type(pvals, jnp.int32), 0, total),
-    ]
-    outs = bitonic.sort_planes(
-        planes, cfg.stable_chunk_rows, num_cmp=2,
-        interpret=resolve_interpret(cfg),
-    )
-    skey = outs[0].reshape(-1)[:n]
-    stie = outs[1].reshape(-1)[:n]
-    sbval = outs[2].reshape(-1)[:n]
-    spval = outs[3].reshape(-1)[:n]
-    is_build = stie < bcount  # bcount <= nb < 2^30: invalid builds excluded
-
-    filled, has = segscan.segscan_flat(
-        skey, sbval, "fill", cfg.stable_chunk_rows,
-        resolve_interpret(cfg), has=is_build,
-    )
-    is_real_probe = (stie >= (1 << 30)) & ((stie - (1 << 30)) < pcount)
-    keep = (has & is_real_probe).astype(jnp.int32)
-    skey_u32 = jax.lax.bitcast_convert_type(skey, jnp.uint32) ^ _SIGN
-
-    (k_out, b_out, p_out), count = _compact_jit(
-        keep,
-        (jax.lax.bitcast_convert_type(skey_u32, jnp.int32), filled, spval),
-        cfg, n,
-    )
-    return (
-        jax.lax.bitcast_convert_type(k_out, jnp.uint32),
-        jax.lax.bitcast_convert_type(b_out, build_vals.dtype),
-        jax.lax.bitcast_convert_type(p_out, probe_vals.dtype),
-        count,
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("cfg", "nb", "np_", "max_matches"))
+@functools.partial(jax.jit, static_argnames=("max_matches",))
 def join_multi_lazy(build_keys, build_vals, bcount, probe_keys, probe_vals,
-                    pcount, cfg: SortConfig, nb: int, np_: int,
-                    max_matches: int):
-    """Validity-aware bounded multi-match join (ops/join._join_multi_jit
-    with traced row counts) — the lazy counterpart of
-    Table.join(max_matches > 1).  Gather-free: tagged union sort, one
-    segmented rank pass, ONE multi-plane forward-fill pass, then a single
-    compaction of the (row, rank) expansion.
+                    pcount, max_matches: int):
+    """Bounded multi-match join with traced row counts — the lazy
+    counterpart of Table.join(max_matches > 1).
 
     Returns (keys, build_vals, probe_vals, count, truncated) padded to
-    (nb + np_) * max_matches; `truncated` is a traced bool — True when a
+    (nb + np) * max_matches; `truncated` is a traced bool — True when a
     VALID build key has more than max_matches valid build rows (the extra
     matches were dropped; callers check it at collect time)."""
-    from radx_tpu.kernels import segscan as segscan_mod
-
-    n = nb + np_
-    M = max_matches
-    total = _total(n)
-    keys = jnp.concatenate([build_keys, probe_keys])
-    tie = jnp.concatenate(
-        [
-            jax.lax.iota(jnp.int32, nb),
-            jax.lax.iota(jnp.int32, np_) + jnp.int32(1 << 30),
-        ]
+    k, fills, pv, valid, truncated = join_ops.join_multi_core(
+        build_keys, build_vals, bcount, probe_keys, probe_vals, pcount,
+        max_matches,
     )
-    bvals = jnp.concatenate([build_vals, jnp.zeros((np_,), build_vals.dtype)])
-    pvals = jnp.concatenate([jnp.zeros((nb,), probe_vals.dtype), probe_vals])
-    planes = [
-        _plane((keys ^ _SIGN).astype(jnp.int32), _I32_MAX, total),
-        _plane(tie, _I32_MAX, total),
-        _plane(jax.lax.bitcast_convert_type(bvals, jnp.int32), 0, total),
-        _plane(jax.lax.bitcast_convert_type(pvals, jnp.int32), 0, total),
-    ]
-    outs = bitonic.sort_planes(
-        planes, cfg.stable_chunk_rows, num_cmp=2,
-        interpret=resolve_interpret(cfg),
-    )
-    skey = outs[0].reshape(-1)[:n]
-    stie = outs[1].reshape(-1)[:n]
-    sbval = outs[2].reshape(-1)[:n]
-    spval = outs[3].reshape(-1)[:n]
-    is_build = stie < bcount  # valid build rows only (tie < nb <= 2^30)
-
-    interp = resolve_interpret(cfg)
-    cnt = segscan_mod.segscan_flat(
-        skey, is_build.astype(jnp.int32), "sum", cfg.stable_chunk_rows,
-        interp,
-    )
-    rank = cnt - is_build.astype(jnp.int32)  # exclusive build rank
-
-    hjs = [is_build & (rank == j) for j in range(M)]
-    fjs = [jnp.where(hj, sbval, jnp.zeros((), sbval.dtype)) for hj in hjs]
-    fills, hass = segscan_mod.segscan_flat(
-        skey, fjs, "fill", cfg.stable_chunk_rows, interp, has=hjs
-    )
-
-    is_probe = (stie >= (1 << 30)) & ((stie - (1 << 30)) < pcount)
-    valid = jnp.stack([is_probe & (j < rank) & hass[j] for j in range(M)])
-    truncated = jnp.any(is_build & (rank >= M))
-    skey_u32 = jax.lax.bitcast_convert_type(skey, jnp.uint32) ^ _SIGN
-
-    # expand (row, rank) pairs in key-sorted, rank-adjacent order and
-    # compact the valid ones — same layout as Table.join(max_matches>1)
-    flat_valid = valid.T.reshape(-1)
-    (k_out, p_out, b_out), count = _compact_jit(
-        flat_valid.astype(jnp.int32),
-        (
-            jnp.broadcast_to(
-                jax.lax.bitcast_convert_type(skey_u32, jnp.int32)[:, None],
-                (n, M),
-            ).reshape(-1),
-            jnp.broadcast_to(spval[:, None], (n, M)).reshape(-1),
-            jnp.stack(fills).T.reshape(-1),
-        ),
-        cfg, n * M,
-    )
-    return (
-        jax.lax.bitcast_convert_type(k_out[: n * M], jnp.uint32),
-        jax.lax.bitcast_convert_type(b_out[: n * M], build_vals.dtype),
-        jax.lax.bitcast_convert_type(p_out[: n * M], probe_vals.dtype),
-        count,
-        truncated,
-    )
+    return (*join_ops.expand_matches(k, fills, pv, valid), truncated)
 
 
-@functools.partial(jax.jit, static_argnames=("cfg", "n", "descending"))
-def sort_lazy(enc_keys, cols, count, cfg: SortConfig, n: int,
-              descending: bool):
-    """Stable validity-aware sort by an encoded uint32 key; `cols` (k of
-    them) ride the exchanges as extra planes. Count is unchanged."""
-    total = _total(n)
+@functools.partial(jax.jit, static_argnames=("descending",))
+def sort_lazy(enc_keys, cols, count, descending: bool):
+    """Stable validity-aware sort by an encoded uint32 key; `cols` ride
+    along by one gather each. Count is unchanged."""
     enc = ~enc_keys if descending else enc_keys
-    kb, tie = _valid_key_tie(enc, count, n)
-    planes = [_plane(kb, _I32_MAX, total), _plane(tie, _I32_MAX, total)]
-    for c in cols:
-        planes.append(
-            _plane(jax.lax.bitcast_convert_type(c, jnp.int32), 0, total)
-        )
-    outs = bitonic.sort_planes(
-        planes, cfg.stable_chunk_rows, num_cmp=2,
-        interpret=resolve_interpret(cfg),
-    )
-    return [o.reshape(-1)[:n] for o in outs[2:]]
+    _, outs = core.sort_by_key(core.invalid_last(enc, count), list(cols))
+    return outs
+
+
+@functools.partial(jax.jit, static_argnames=("k",))
+def top_k_lazy(work, cols, count, k: int):
+    """The k best valid rows of `cols` by `work` (ascending = best first)."""
+    _, idx = top_k_core(core.invalid_last(work, count), k)
+    return [c[idx] for c in cols]
 
 
 # --- the LazyTable ----------------------------------------------------------
@@ -358,35 +111,28 @@ def sort_lazy(enc_keys, cols, count, cfg: SortConfig, n: int,
 class LazyTable:
     """Padded columns + traced valid-row count; see module docstring."""
 
-    def __init__(self, columns, count, cfg: SortConfig | None = None):
+    def __init__(self, columns, count):
         self.columns = dict(columns)
         self.count = jnp.asarray(count, jnp.int32)
-        self.cfg = cfg or tuned()
         lens = {c.shape[0] for c in self.columns.values()}
         if len(lens) != 1:
             raise ValueError("all columns must have equal padded length")
 
-    # pytree plumbing (cfg + names are static aux data)
+    # pytree plumbing (column names are static aux data)
     def tree_flatten(self):
         names = tuple(sorted(self.columns))
-        return (
-            tuple(self.columns[n] for n in names) + (self.count,),
-            (names, self.cfg),
-        )
+        return tuple(self.columns[n] for n in names) + (self.count,), names
 
     @classmethod
-    def tree_unflatten(cls, aux, children):
-        names, cfg = aux
+    def tree_unflatten(cls, names, children):
         obj = cls.__new__(cls)
         obj.columns = dict(zip(names, children[:-1]))
         obj.count = children[-1]
-        obj.cfg = cfg
         return obj
 
     @classmethod
-    def from_table(cls, table, cfg: SortConfig | None = None) -> "LazyTable":
-        return cls(table.columns, jnp.int32(table.num_rows),
-                   cfg or tuned())
+    def from_table(cls, table) -> "LazyTable":
+        return cls(table.columns, jnp.int32(table.num_rows))
 
     @property
     def padded_rows(self) -> int:
@@ -399,72 +145,60 @@ class LazyTable:
 
     def filter(self, mask) -> "LazyTable":
         names = list(self.columns)
-        n = self.padded_rows
         cols, count = filter_lazy(
-            jnp.asarray(mask), [self.columns[m] for m in names],
-            self.count, self.cfg, n,
+            jnp.asarray(mask), tuple(self.columns[m] for m in names),
+            self.count,
         )
-        cols = [
-            jax.lax.bitcast_convert_type(c, self.columns[m].dtype)
-            for c, m in zip(cols, names)
-        ]
-        return LazyTable(dict(zip(names, cols)), count, self.cfg)
+        return LazyTable(dict(zip(names, cols)), count)
 
     def groupby(self, key: str, value: str, agg: str = "sum",
                 bins: int | None = None) -> "LazyTable":
         """GROUP BY key aggregating value (same surface as Table.groupby).
 
-        Pass `bins` (a pow2 bound on the key space: <= 2^16 for sum/count,
-        <= 2^13 for min/max) to route through the dense MXU/VPU aggregate —
-        no sort, no sync, same semantics.  Keys past the bound among the
-        valid prefix are the caller's contract (checked only in the eager
-        API, which is allowed a host sync)."""
-        if agg not in ("sum", "count", "min", "max"):
+        Pass `bins` (a bound on the key space) to route through the dense
+        aggregate — no sort, no sync, same semantics.  Keys past the bound
+        among the valid prefix are the caller's contract (checked only in
+        the eager API, which is allowed a host sync)."""
+        if agg not in groupby_ops.AGGS:
             raise ValueError(f"unknown agg {agg!r}")
         key_col = self.columns[key]
         key_dtype = key_col.dtype
-        dense_ok = bins is not None and (
-            (agg == "sum" and self.columns[value].dtype != jnp.float32)
-            or agg == "count"
-            or (agg in ("min", "max") and bins <= 8192)
-        )
-        if dense_ok:
+        if bins is not None:
             # dense keys are bin ids: uint32/int32 in [0, bins) — bitcast
             # is the identity there (out-of-range is the caller's contract)
             if key_dtype == jnp.float32:
                 raise TypeError("dense groupby keys must be uint32/int32")
             uk, out, ng = groupby_lazy_dense(
                 jax.lax.bitcast_convert_type(key_col, jnp.uint32),
-                self.columns[value], self.count, agg, self.cfg, bins,
+                self.columns[value], self.count, agg, bins,
             )
-            if key_dtype == jnp.int32:
-                uk = jax.lax.bitcast_convert_type(uk, jnp.int32)
+            uk = jax.lax.bitcast_convert_type(uk, key_dtype)
         else:
-            # order-preserving encodings (ops/sort._encode_keys) thread
-            # int32/float32 keys through the uint32 grouping core
             uk, out, ng = groupby_lazy(
-                sort_ops._encode_keys(key_col), self.columns[value],
-                self.count, agg, self.cfg, self.padded_rows,
+                core.encode_keys(key_col), self.columns[value], self.count,
+                agg,
             )
-            uk = sort_ops._decode_keys(uk, key_dtype)
-        return LazyTable({key: uk, agg: out}, ng, self.cfg)
+            uk = core.decode_keys(uk, key_dtype)
+        return LazyTable({key: uk, agg: out}, ng)
 
-    def join(self, other: "LazyTable", on: str, value: str,
-             other_value: str) -> "LazyTable":
+    def _join_args(self, other, on, value, other_value):
         key_dtype = self.columns[on].dtype
         if other.columns[on].dtype != key_dtype:
             raise TypeError("join key dtypes must match on both sides")
-        k, bv, pv, count = join_lazy(
-            sort_ops._encode_keys(other.columns[on]),
-            other.columns[other_value], other.count,
-            sort_ops._encode_keys(self.columns[on]),
+        args = (
+            core.encode_keys(other.columns[on]), other.columns[other_value],
+            other.count, core.encode_keys(self.columns[on]),
             self.columns[value], self.count,
-            self.cfg, other.padded_rows, self.padded_rows,
         )
+        return key_dtype, args
+
+    def join(self, other: "LazyTable", on: str, value: str,
+             other_value: str) -> "LazyTable":
+        key_dtype, args = self._join_args(other, on, value, other_value)
+        k, bv, pv, count = join_lazy(*args)
         return LazyTable(
-            {on: sort_ops._decode_keys(k, key_dtype), value: pv,
-             other_value: bv},
-            count, self.cfg,
+            {on: core.decode_keys(k, key_dtype), value: pv, other_value: bv},
+            count,
         )
 
     def join_multi(self, other: "LazyTable", on: str, value: str,
@@ -476,21 +210,13 @@ class LazyTable:
         Check it at collect time; raising here would force a host sync."""
         if max_matches < 1:
             raise ValueError("max_matches must be >= 1")
-        key_dtype = self.columns[on].dtype
-        if other.columns[on].dtype != key_dtype:
-            raise TypeError("join key dtypes must match on both sides")
-        k, bv, pv, count, truncated = join_multi_lazy(
-            sort_ops._encode_keys(other.columns[on]),
-            other.columns[other_value], other.count,
-            sort_ops._encode_keys(self.columns[on]),
-            self.columns[value], self.count,
-            self.cfg, other.padded_rows, self.padded_rows, max_matches,
-        )
+        key_dtype, args = self._join_args(other, on, value, other_value)
+        k, bv, pv, count, truncated = join_multi_lazy(*args, max_matches)
         return (
             LazyTable(
-                {on: sort_ops._decode_keys(k, key_dtype), value: pv,
+                {on: core.decode_keys(k, key_dtype), value: pv,
                  other_value: bv},
-                count, self.cfg,
+                count,
             ),
             truncated,
         )
@@ -502,53 +228,35 @@ class LazyTable:
         key.  Composes the existing lazy cores: sort_by + a boundary mask
         + the validity-ANDing filter."""
         t = self.sort_by(key)
-        sk = sort_ops._encode_keys(t.columns[key])
-        # boundary mask on the sorted keys; filter_lazy re-ANDs validity,
-        # so garbage rows past `count` cannot fake a boundary
-        is_first = jnp.concatenate(
-            [
-                jnp.ones((1,), jnp.int32),
-                (sk[1:] != sk[:-1]).astype(jnp.int32),
-            ]
-        )
-        return t.filter(is_first)
+        # filter_lazy re-ANDs validity, so garbage rows past `count` cannot
+        # fake a boundary
+        return t.filter(core.run_starts(core.encode_keys(t.columns[key])))
 
     def top_k(self, key: str, k: int, largest: bool = True) -> "LazyTable":
-        """ORDER BY key DESC/ASC LIMIT k, no host sync: routes through the
-        flat selection engine (ops/topk.py — chunk sort + candidate
-        truncation, skipping the full sort's merge levels), then gathers
-        the k winning rows per column (k is static and small, so this
-        gather is k rows, not n).  Invalid rows get the worst work key and
-        a losing tiebreak, so they can only surface when count < k — and
-        the returned count = min(count, k) masks them."""
-        from radx_tpu.ops import topk as topk_mod
-
+        """ORDER BY key DESC/ASC LIMIT k, no host sync (ops/topk.py's
+        stable sort and slice, then a gather of the k winning rows per
+        column).  Invalid rows rank last, so they can only surface when
+        count < k — and the returned count = min(count, k) masks them."""
         n = self.padded_rows
         if not 1 <= k <= n:
             raise ValueError(f"need 1 <= k <= {n}, got k={k}")
-        enc = sort_ops._encode_keys(self.columns[key])
-        work = ~enc if largest else enc
-        pos = jax.lax.iota(jnp.int32, n)
-        work = jnp.where(pos < self.count, work, jnp.uint32(0xFFFFFFFF))
-        select = k <= (self.cfg.topk_chunk_rows * LANES) // 2
-        _, idx = topk_mod._top_k_jit(work, self.cfg, n, k, select)
-        cols = {m: c[idx] for m, c in self.columns.items()}
+        enc = core.encode_keys(self.columns[key])
+        names = list(self.columns)
+        cols = top_k_lazy(
+            ~enc if largest else enc,
+            tuple(self.columns[m] for m in names), self.count, k,
+        )
         return LazyTable(
-            cols, jnp.minimum(self.count, jnp.int32(k)), self.cfg
+            dict(zip(names, cols)), jnp.minimum(self.count, jnp.int32(k))
         )
 
     def sort_by(self, key: str, descending: bool = False) -> "LazyTable":
         names = list(self.columns)
-        enc = sort_ops._encode_keys(self.columns[key])
         outs = sort_lazy(
-            enc, tuple(self.columns[m] for m in names), self.count,
-            self.cfg, self.padded_rows, descending,
+            core.encode_keys(self.columns[key]),
+            tuple(self.columns[m] for m in names), self.count, descending,
         )
-        cols = {
-            m: jax.lax.bitcast_convert_type(o, self.columns[m].dtype)
-            for m, o in zip(names, outs)
-        }
-        return LazyTable(cols, self.count, self.cfg)
+        return LazyTable(dict(zip(names, outs)), self.count)
 
     # -- the single sync -----------------------------------------------------
 

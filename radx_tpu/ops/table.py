@@ -17,7 +17,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from radx_tpu.config import SortConfig, tuned
+from radx_tpu.ops import core
 from radx_tpu.ops import filter as filter_ops
 from radx_tpu.ops import groupby as groupby_ops
 from radx_tpu.ops import join as join_ops
@@ -52,19 +52,18 @@ class Table:
     def to_numpy(self) -> dict[str, np.ndarray]:
         return {k: np.asarray(jax.device_get(v)) for k, v in self.columns.items()}
 
-    def lazy(self, cfg: SortConfig | None = None):
+    def lazy(self):
         """Switch to the no-host-sync pipeline API (ops/lazy.LazyTable):
         operators thread a traced row count instead of slicing via
         ``int(count)``, so filter→groupby→join→sort fuses under one jit;
         ``collect()`` is the single sync at the end."""
         from radx_tpu.ops.lazy import LazyTable
 
-        return LazyTable.from_table(self, cfg)
+        return LazyTable.from_table(self)
 
     # -- operators ---------------------------------------------------------
 
-    def sort_by(self, key, descending=False,
-                cfg: SortConfig | None = None) -> "Table":
+    def sort_by(self, key, descending=False) -> "Table":
         """Stable sort of all columns by one — or several —
         uint32/int32/float32 columns.
 
@@ -84,145 +83,96 @@ class Table:
             raise ValueError("descending list must match key list")
         t = self
         for k, d in zip(reversed(keys), reversed(descs)):
-            t = t._sort_by_one(k, d, cfg)
+            t = t._sort_by_one(k, d)
         return t
 
-    def _sort_by_one(self, key: str, descending: bool,
-                     cfg: SortConfig | None) -> "Table":
-        cfg = cfg or tuned()
-        keys = self.columns[key]
-        enc = sort_ops._encode_keys(keys)
+    def _sort_by_one(self, key: str, descending: bool) -> "Table":
+        enc = core.encode_keys(self.columns[key])
         if descending:
             enc = ~enc
-        # every column rides the bitonic exchanges as an extra plane — no
-        # post-sort gather (pathological on TPU at 2^28, NOTES.md)
         names = list(self.columns)
-        _, outs = sort_ops.sort_multi(
-            enc, [self.columns[n] for n in names], cfg
-        )
+        _, outs = sort_ops.sort_multi(enc, [self.columns[n] for n in names])
         return Table(dict(zip(names, outs)))
 
-    def filter(self, mask, cfg: SortConfig | None = None) -> "Table":
+    def filter(self, mask) -> "Table":
         """Keep rows where mask != 0 (stable)."""
-        cfg = cfg or tuned()
         names = list(self.columns)
         cols, count = filter_ops.filter_columns(
-            mask, [self.columns[n] for n in names], cfg
+            mask, [self.columns[n] for n in names]
         )
         count = int(count)
         return Table({n: c[:count] for n, c in zip(names, cols)})
 
-    def distinct(self, key: str, cfg: SortConfig | None = None) -> "Table":
+    def distinct(self, key: str) -> "Table":
         """SELECT DISTINCT ON (key): one row per distinct key value, the
         FIRST occurrence in the original row order (stable), rows ordered
-        by key.  Built from the stable multi-plane sort + the boundary
-        compaction kernel — no gather/scatter (ops/distinct.py rationale).
-        """
-        cfg = cfg or tuned()
+        by key.  Built from the stable sort + the boundary compaction."""
         names = list(self.columns)
-        enc = sort_ops._encode_keys(self.columns[key])
-        ks, outs = sort_ops.sort_multi(
-            enc, [self.columns[n] for n in names], cfg
-        )
-        first = jnp.concatenate(
-            [jnp.ones((1,), jnp.int32), (ks[1:] != ks[:-1]).astype(jnp.int32)]
-        )
-        cols, count = filter_ops.filter_columns(first, outs, cfg)
+        enc = core.encode_keys(self.columns[key])
+        ks, outs = sort_ops.sort_multi(enc, [self.columns[n] for n in names])
+        cols, count = filter_ops.filter_columns(core.run_starts(ks), outs)
         count = int(count)
         return Table({n: c[:count] for n, c in zip(names, cols)})
 
-    def top_k(self, key: str, k: int, largest: bool = True,
-              cfg: SortConfig | None = None) -> "Table":
+    def top_k(self, key: str, k: int, largest: bool = True) -> "Table":
         """ORDER BY key DESC/ASC LIMIT k over all columns (ties keep the
-        earliest original rows) via the dedicated selection operator
-        (ops/topk.py) — skips the full sort's cross-chunk merge levels."""
+        earliest original rows) via the selection operator (ops/topk.py)
+        and one gather of k rows per column."""
         from radx_tpu.ops.topk import top_k as _top_k
 
-        cfg = cfg or tuned()
-        _, idx = _top_k(self.columns[key], k, largest, cfg)
-        # k is tiny relative to the table; one gather of k rows per column
-        # beats threading every column through the selection planes.
+        _, idx = _top_k(self.columns[key], k, largest)
         return Table({n: c[idx] for n, c in self.columns.items()})
 
     def groupby(self, key: str, value: str, agg: str = "sum",
-                bins: int | None = None,
-                cfg: SortConfig | None = None) -> "Table":
+                bins: int | None = None) -> "Table":
         """GROUP BY key aggregating value; returns Table(key, agg).
 
-        Pass `bins` (a pow2 bounding the key space: <= 2^16 for sum/count,
-        <= 2^13 for min/max) to route through the dense MXU/VPU aggregate
-        (kernels/aggregate.py) — up to ~20x faster than the sort-based path
-        on small key spaces.
+        Pass `bins` (a bound on the key space; keys must be bin ids in
+        [0, bins)) to route through the dense aggregate, which needs no
+        sort.
         """
-        cfg = cfg or tuned()
-        dense_ok = bins is not None and (
-            (agg == "sum" and self.columns[value].dtype != jnp.float32)
-            or agg == "count"
-            or (agg in ("min", "max") and bins <= 8192)
-        )
-        if dense_ok:
+        if bins is not None:
             uk, out, ng = groupby_ops.groupby_dense(
-                self.columns[key], self.columns[value], agg, bins, cfg
+                self.columns[key], self.columns[value], agg, bins
             )
         else:
             uk, out, ng = groupby_ops.groupby(
-                self.columns[key], self.columns[value], agg, cfg
+                self.columns[key], self.columns[value], agg
             )
         ng = int(ng)
         return Table({key: uk[:ng], agg: out[:ng]})
 
     def join(self, other: "Table", on: str, value: str, other_value: str,
-             max_matches: int = 1, how: str = "inner", missing=None,
-             cfg: SortConfig | None = None) -> "Table":
+             max_matches: int = 1, how: str = "inner",
+             missing=None) -> "Table":
         """Inner or left join with `other` on column `on` (build side).
 
-        max_matches == 1 (default) uses the scalable gather-free tagged
-        merge join (duplicate build keys resolve to the last build row);
-        larger values use the searchsorted expansion path.  how="left"
-        (max_matches == 1 only) keeps every row of THIS table, with
-        `missing` (default 0) as other_value where no key matched.
+        max_matches == 1 (default): one match per row (duplicate build keys
+        resolve to the last build row); larger values keep up to
+        max_matches build rows per row.  how="left" (max_matches == 1 only)
+        keeps every row of THIS table, with `missing` (default 0) as
+        other_value where no key matched.
         """
-        cfg = cfg or tuned()
-        names = [on, value, other_value]
         if how != "inner" and max_matches != 1:
             raise ValueError("how='left' requires max_matches == 1")
         if max_matches == 1:
             k, bv, pv, count = join_ops.join_merge(
                 other.columns[on], other.columns[other_value],
-                self.columns[on], self.columns[value], cfg=cfg,
+                self.columns[on], self.columns[value],
                 how=how, missing=missing,
             )
-            count = int(count)
-            return Table(
-                {on: k[:count], value: pv[:count], other_value: bv[:count]}
+        else:
+            k, bv, pv, valid, truncated = join_ops.join_merge_multi(
+                other.columns[on], other.columns[other_value],
+                self.columns[on], self.columns[value],
+                max_matches=max_matches,
             )
-        # multi-match rides the gather-free tagged merge join
-        # (join_merge_multi): tagged union sort + ONE multi-plane segmented
-        # fill — never jnp.searchsorted, whose XLA lowering is pathological
-        # at 2^26+ rows on TPU (measured 720 s; NOTES.md).
-        k, bv, pv, valid, truncated = join_ops.join_merge_multi(
-            other.columns[on], other.columns[other_value],
-            self.columns[on], self.columns[value],
-            max_matches=max_matches, cfg=cfg,
-        )
-        if bool(truncated):
-            raise ValueError(
-                "join truncated: a build key exceeded max_matches; re-run "
-                f"with max_matches > {max_matches}"
-            )
-        m = valid.shape[0]
-        n = k.shape[0]
-        # (M, n) -> (n, M) so output rows stay key-sorted with the M match
-        # ranks of a probe row adjacent
-        flat_valid = valid.T.reshape(-1)
-        cols, count = filter_ops.filter_columns(
-            flat_valid.astype(jnp.int32),
-            [
-                jnp.broadcast_to(k[:, None], (n, m)).reshape(-1),
-                jnp.broadcast_to(pv[:, None], (n, m)).reshape(-1),
-                bv.T.reshape(-1),
-            ],
-            cfg,
-        )
+            if bool(truncated):
+                raise ValueError(
+                    "join truncated: a build key exceeded max_matches; "
+                    f"re-run with max_matches > {max_matches}"
+                )
+            k, bv, pv, count = join_ops.expand_matches(k, bv, pv, valid)
         count = int(count)
-        return Table({n_: c[:count] for n_, c in zip(names, cols)})
+        return Table({on: k[:count], value: pv[:count],
+                      other_value: bv[:count]})

@@ -2,28 +2,14 @@
 
 Query-executor surface (ORDER BY ... LIMIT k): the reference library has no
 selection operator (it is a bare sort, SURVEY §2), but any user of a sort
-library reaches for top-k next, and on TPU a dedicated path is structurally
-cheaper than sort-then-slice.
+library reaches for top-k next.
 
-TPU-native design — selection as *chunk sort + candidate truncation*:
-
-  1. per-chunk Pallas sort of (key', original-index) pairs — the MSD
-     engine's phase-1 kernel (kernels/bitonic.sort_chunks_ascending), one
-     grid pass, no cross-chunk merging;
-  2. keep only each chunk's best ceil(k/128) rows.  Superset argument: any
-     global top-k element is inside its own chunk's top-k (an element
-     dropped here has >= k better elements in its own chunk alone), so the
-     union of per-chunk candidates contains the exact answer;
-  3. one full (key', index) sort of the m*ceil(k/128) surviving rows —
-     asymptotically tiny for k << n.
-
-This skips every cross-chunk merge level of a full sort — exactly the
-log²(n/C) term that dominates large-N sorting (NOTES.md "Bitonic ceiling")
-— while staying total-order exact: ties resolve by smallest original index
-(the same (value, index) lexicographic order as jax.lax.top_k).
+Selection is a stable sort of the order-encoded keys followed by a slice of
+the first k rows: ties resolve by smallest original index, the same
+(value, index) lexicographic order as jax.lax.top_k.
 
 Key dtypes: uint32 / int32 / float32 via the order-preserving encodings of
-ops/sort.py (float total order: -inf < ... < -0.0 < +0.0 < ... < +inf <
+ops/core.py (float total order: -inf < ... < -0.0 < +0.0 < ... < +inf <
 nan, so with largest=True NaNs rank first, matching lax.top_k).
 """
 
@@ -34,61 +20,23 @@ import functools
 import jax
 import jax.numpy as jnp
 
-from radx_tpu.config import LANES, SortConfig, resolve_interpret, tuned
-from radx_tpu.kernels import bitonic
-from radx_tpu.ops.sort import (
-    _PAD_KEY,
-    _SIGN,
-    _decode_keys,
-    _encode_keys,
-    _iota_plane,
-    _key_plane,
-    _pad_len,
-)
+from radx_tpu.ops import core
 
 
-def _pad_rows_pow2(planes, pad_vals):
-    """Pad (rows, 128) planes with constant rows up to the next pow2 rows."""
-    rows = planes[0].shape[0]
-    rows_p = 1 << (rows - 1).bit_length()
-    if rows_p == rows:
-        return planes
-    return [
-        jnp.concatenate(
-            [p, jnp.full((rows_p - rows, LANES), v, p.dtype)], axis=0
-        )
-        for p, v in zip(planes, pad_vals)
-    ]
+def top_k_core(work, k: int):
+    """work: uint32 keys encoded so that ASCENDING order is the requested
+    output order.  Returns (work_sorted[:k], indices[:k])."""
+    sk, perm = core.argsort_stable(work)
+    return sk[:k], perm[:k]
 
 
-@functools.partial(jax.jit, static_argnames=("cfg", "n", "k", "select"))
-def _top_k_jit(work, cfg: SortConfig, n: int, k: int, select: bool):
-    """work: uint32 keys already encoded so that ASCENDING order == the
-    requested output order (largest-first passes the bit-complement).
-    Returns (work_sorted[:k], indices[:k])."""
-    interpret = resolve_interpret(cfg)
-    c_rows = cfg.topk_chunk_rows
-    total = _pad_len(n)
-    kp = _key_plane(work, total)  # pads _PAD_KEY -> sort to the end
-    ip = _iota_plane(total)  # pad indices >= n break pad ties last
-    if select and total > 2 * c_rows * LANES:
-        n_chunks = total // (c_rows * LANES)
-        kp, ip = bitonic.sort_chunks_ascending(
-            [kp, ip], c_rows, num_cmp=2, interpret=interpret
-        )
-        r_k = -(-k // LANES)  # candidate rows per chunk (r_k*128 >= k)
-        kp = kp.reshape(n_chunks, c_rows, LANES)[:, :r_k].reshape(-1, LANES)
-        ip = ip.reshape(n_chunks, c_rows, LANES)[:, :r_k].reshape(-1, LANES)
-        kp, ip = _pad_rows_pow2([kp, ip], [_PAD_KEY, jnp.int32(total)])
-    kp, ip = bitonic.sort_planes(
-        [kp, ip], c_rows, num_cmp=2, interpret=interpret
-    )
-    wk = (kp.reshape(-1)[:k].astype(jnp.uint32)) ^ _SIGN
-    return wk, ip.reshape(-1)[:k]
+@functools.partial(jax.jit, static_argnames=("k", "largest"))
+def _top_k_jit(enc, k: int, largest: bool):
+    wk, idx = top_k_core(~enc if largest else enc, k)
+    return (~wk if largest else wk), idx
 
 
-def top_k(keys, k: int, largest: bool = True,
-          cfg: SortConfig | None = None):
+def top_k(keys, k: int, largest: bool = True):
     """The k largest (default) or smallest keys, with original indices.
 
     Returns (values, indices): values in descending order when
@@ -98,18 +46,10 @@ def top_k(keys, k: int, largest: bool = True,
 
     keys: 1-D uint32 / int32 / float32.  Requires 1 <= k <= len(keys).
     """
-    cfg = cfg or tuned()
     keys = jnp.asarray(keys)
-    enc = _encode_keys(keys)
+    enc = core.encode_keys(keys)
     n = keys.shape[0]
     if not 1 <= k <= n:
         raise ValueError(f"need 1 <= k <= {n}, got k={k}")
-    work = ~enc if largest else enc
-    # The candidate pass pays one extra read+write of N; it wins once the
-    # skipped merge levels exceed that — in practice when the per-chunk
-    # truncation actually discards most rows.  Otherwise sort outright.
-    select = k <= (cfg.topk_chunk_rows * LANES) // 2
-    wk, idx = _top_k_jit(work, cfg, n, k, select)
-    if largest:
-        wk = ~wk
-    return _decode_keys(wk, keys.dtype), idx
+    wk, idx = _top_k_jit(enc, k, largest)
+    return core.decode_keys(wk, keys.dtype), idx

@@ -1,4 +1,4 @@
-"""Bit-exact CPU oracles (NumPy + native C++) for the TPU engine.
+"""Bit-exact CPU oracles (NumPy + native C++) for the engine.
 
 The reference's only oracle is a parallel ``std::stable_sort`` that is timed
 but never compared against the GPU output (src/test/sort.cpp:452-469).  Ours

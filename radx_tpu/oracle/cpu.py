@@ -2,7 +2,7 @@
 
 Mirrors the reference's three-phase per-pass decomposition exactly so that
 *intermediate* states (per-tile histograms, scanned bases, destinations) are
-comparable against the Pallas kernels, not just final outputs:
+comparable between the NumPy and C++ oracles, not just final outputs:
 
   phase 1  per-tile digit histogram   — counting.comp   (RadX2-SM7-DEV/counting.comp:50-73)
   phase 2  hierarchical prefix scan   — partition.comp  (RadX2-SM7-DEV/partition.comp:38-72)

@@ -1,8 +1,8 @@
 """Multi-chip / multi-host layer — the capability the reference lacks
 entirely (SURVEY §2e: no NCCL/MPI/sockets anywhere; single device, single
-queue).  TPU-native design: jax.sharding.Mesh + shard_map; XLA collectives
-(psum for global digit histograms, all_to_all for the key shuffle) ride ICI
-within a slice and DCN across hosts.
+queue).  Design: jax.sharding.Mesh + shard_map; XLA hands the collectives
+(all_gather for the splitter samples, ppermute for the key exchange) to
+NCCL, over NVLink between the cards of a host.
 """
 
 from radx_tpu.parallel.mesh import make_mesh  # noqa: F401

@@ -1,40 +1,26 @@
 """Distributed sample-splitter sort over a device mesh (BASELINE config 5).
 
 Net-new capability vs the reference (which is strictly single-GPU,
-SURVEY §2e).  Round-2 redesign: every step is scatter/gather-free on the
-device — the primitives are the bitonic Pallas pipeline, contiguous
-dynamic slices, comparisons/reductions, and `ppermute`/`all_gather`
-collectives.  Algorithm per shard:
+SURVEY §2e).  Every step is a plain XLA op or collective: stable sorts,
+contiguous dynamic slices, comparisons/reductions, and `ppermute` /
+`all_gather`.  Algorithm per shard:
 
-  1. **local sort first** (the big compute — bitonic Pallas pipeline);
+  1. **local sort first** — a stable sort by key (CUB's radix sort on the
+     GPU); payloads ride by one gather each;
   2. **sample splitters**: regular samples from the *sorted* shard are
      `all_gather`ed (tiny) and sorted; D-1 splitter *keys* are picked at
      regular ranks.  Classic sample-sort balance bound: each device
-     receives at most N/D + N/oversample keys under *any* distribution —
-     strictly stronger than the round-1 top-16-bit binning (which
-     collapsed when keys shared their top bits; the reference never
-     handles skew at all, it uses fixed blocks);
+     receives at most N/D + N/oversample keys under *any* distribution
+     (the reference never handles skew at all, it uses fixed blocks);
   3. run boundaries in the sorted shard = D-1 "rank of splitter"
-     reductions; packing into fixed slots = D contiguous dynamic slices
-     (no giant gather);
-  4. **exchange as D-1 `ppermute` waves** (ICI neighbours), each wave
-     overlapped with the pairwise bitonic merges of runs that have
-     already arrived (`overlap=True`), or one `all_to_all`-equivalent
-     wave loop followed by a single multi-way merge (`overlap=False`).
-     At slice scale (D >= ~64) pass `exchange="hier"`: a two-phase
-     hierarchical exchange over the Dr×Dc factorization of D —
+     reductions; packing into fixed slots = D contiguous dynamic slices;
+  4. **exchange as D-1 `ppermute` waves**.  `exchange="hier"` instead runs
+     a two-phase exchange over the Dr×Dc factorization of D —
      (Dr-1)+(Dc-1) ≈ 2√D-2 waves instead of D-1, each key crossing the
      wire twice (route to the destination *block* along column peers,
-     merge, re-slice at the block's internal splitters, deliver along
-     row peers) — the standard latency/bandwidth trade, modeled against
-     flat in tools/scaling_model.py (crossover D≈64 DCN / D≈128 ICI);
-  5. the received runs are merged — **not re-sorted** — by the
-     alternating-direction run merge (kernels/bitonic.merge_sorted_runs):
-     O(L·log D) work instead of the round-1 full O(L log²L) sort of the
-     padded recv buffer.  Sources pre-flip the runs bound for odd arrival
-     positions so no materialized flip is needed at the destination, and
-     the parent merges of the tree emit alternating directions the same
-     way.
+     sort, re-slice at the block's internal splitters, deliver along row
+     peers);
+  5. the received slots are sorted once more, into one run.
 
   The concatenation of device 0's valid prefix, device 1's, ... is the
   globally sorted sequence.
@@ -45,12 +31,12 @@ raised from inside jit, so the sort also returns a boolean overflow flag
 computed with a global max — callers must check it (tested in
 tests/test_dist_sort.py).
 
-Payloads ride along as extra planes through the local sort, the slices,
-the waves, and the merges — the distributed analogue of the reference's
-never-dispatched indiction/permutation payload stubs
-(radix/indiction.comp:22-28).  `stable=True` threads a global-index plane
-through the comparisons, making pair sorts deterministic and argsort
-stable across the whole mesh.
+Payloads ride along through the local sort, the slices, the waves, and the
+final sorts — the distributed analogue of the reference's never-dispatched
+indiction/permutation payload stubs (radix/indiction.comp:22-28).  Payload
+sorts carry a global-index column and order by (key, global index), so they
+are stable across the whole mesh and never confuse a real 0xFFFFFFFF key
+with slot padding.
 """
 
 from __future__ import annotations
@@ -63,12 +49,12 @@ import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 from jax import shard_map
 
-from radx_tpu.config import SortConfig, cdiv, resolve_interpret, tuned
-from radx_tpu.kernels import bitonic
+from radx_tpu.config import cdiv
+from radx_tpu.ops import core
 
-LANES = 128
-_SIGN = np.uint32(0x80000000)
-_PAD_KEY = np.int32(0x7FFFFFFF)
+SLOT_ALIGN = 128  # smallest slot, in keys
+_KEY_PAD = np.uint32(0xFFFFFFFF)
+_IDX_PAD = np.int32(0x7FFFFFFF)
 OVERSAMPLE = 64  # samples per device per splitter; recv bound N/D + N/(64·D)
 
 
@@ -76,178 +62,84 @@ def _pow2_pad(n: int, min_total: int = 1024) -> int:
     return 1 << (max(n, min_total) - 1).bit_length()
 
 
-def _log2(x: int) -> int:
-    assert x > 0 and (x & (x - 1)) == 0, f"{x} not a power of two"
-    return x.bit_length() - 1
-
-
-def _plane_fill(i, num_cmp):
-    """Pad fill per plane: sentinel max for the key, and max for the
-    tiebreak plane too — real keys equal to the 0x7FFFFFFF sentinel (i.e.
-    uint32 0xFFFFFFFF) must sort BEFORE pads so the valid prefix keeps
-    their payloads, which requires pads to lose every tiebreak."""
+def _plane_fill(i, num_cmp, dtype):
+    """Slot padding per column: the maximum key, and the maximum global
+    index, so padding sorts behind every real row of an equal key."""
     if i == 0:
-        return _PAD_KEY
+        return _KEY_PAD
     if i == 1 and num_cmp == 2:
-        return jnp.int32(0x7FFFFFFF)
-    return jnp.int32(0)
+        return _IDX_PAD
+    return np.zeros((), dtype)
 
 
-def _local_sort_planes(planes, n, cfg, num_cmp):
-    """Pad i32 planes (1-D, length n) to a pow2 and bitonic-sort them."""
-    total = _pow2_pad(n)
-    padded = []
-    for i, p in enumerate(planes):
-        buf = jnp.full((total,), _plane_fill(i, num_cmp), jnp.int32).at[:n].set(p)
-        padded.append(buf.reshape(total // LANES, LANES))
-    outs = bitonic.sort_planes(
-        padded,
-        cfg.chunk_rows if num_cmp == 1 else cfg.stable_chunk_rows,
-        num_cmp,
-        interpret=resolve_interpret(cfg),
-    )
-    return [o.reshape(-1)[:n] for o in outs]
-
-
-def _merge_pair(a_planes, b_planes, log_run, num_cmp, cfg, descending):
-    """Bitonic-merge two sorted runs (a ascending, b descending) into one
-    run of twice the length, ascending unless `descending`."""
-    planes = [
-        jnp.concatenate([a, b]).reshape(-1, LANES)
-        for a, b in zip(a_planes, b_planes)
-    ]
-    out = bitonic.merge_sorted_runs(
-        planes, log_run, num_cmp,
-        cfg.chunk_rows if num_cmp == 1 else cfg.stable_chunk_rows,
-        descending=descending,
-        interpret=resolve_interpret(cfg),
-    )
-    return [o.reshape(-1) for o in out]
-
-
-def _group_exchange_merge(
-    send, counts, axis, me_g, group_size, group_sel, slot, num_cmp, cfg,
-    overlap, n_planes,
-):
-    """Exchange fixed slots within a device subgroup and merge arrivals.
-
-    send: (P, G, slot) — run g is bound for the group's g-th device;
-    counts: (G,) valid lengths; group_sel(i) -> (g, flat_of(g')) maps a
-    flat axis index to its group coordinate and back (defines the subgroup
-    permutation for ppermute).  Returns (merged_planes, valid, rcounts):
-    merged ascending planes of G·slot_pow2 elements (sentinel-padded runs
-    merged by the alternating-direction tree), the valid total, and the
-    per-arrival counts.
-
-    This is the round-4 flat exchange factored out so the hierarchical
-    two-phase exchange (VERDICT r4 #8: O(D) waves → O(√D)) can reuse the
-    wave loop, the source-side flip choreography, and the overlap merge
-    stack for BOTH of its phases.
-    """
-    # source-side flip of runs bound for odd arrival positions
-    arrival = (
-        jax.lax.broadcasted_iota(jnp.int32, (1, group_size, 1), 1) - me_g
-    ) % group_size
-    send = jnp.where((arrival & 1) != 0, jnp.flip(send, axis=-1), send)
-
-    # per-arrival counts: subgroup all_to_all expressed as G-1 ppermutes of
-    # one scalar each would serialize; a tiled all_to_all over the full
-    # axis is not subgroup-aware, so exchange counts with the same wave
-    # permutation (cheap: 1 int per wave)
-    log_slot = _log2(slot)
-
-    def wave_perm(shift):
-        perm = []
-        for i, (g, flat_of) in group_sel.items():
-            perm.append((i, flat_of[(g + shift) % group_size]))
-        return perm
-
-    def wave(shift):
-        dest = (me_g + shift) % group_size
-        blk = jax.lax.dynamic_slice_in_dim(send, dest, 1, axis=1)
-        out = jax.lax.ppermute(blk, axis, wave_perm(shift))[:, 0]
-        cnt = jax.lax.dynamic_slice_in_dim(counts, dest, 1)
-        rcnt = jax.lax.ppermute(cnt, axis, wave_perm(shift))[0]
-        return out, rcnt
-
-    own = jax.lax.dynamic_slice_in_dim(send, me_g, 1, axis=1)[:, 0]
-    own_cnt = jax.lax.dynamic_slice_in_dim(counts, me_g, 1)[0]
-
-    n_runs = 1 << (group_size - 1).bit_length()
-
-    def sentinel_run():
-        return [
-            jnp.full((slot,), _plane_fill(i, num_cmp), jnp.int32)
-            for i in range(n_planes)
-        ]
-
-    rcounts = [own_cnt]
-    if overlap:
-        stack = []  # (level, position, planes)
-
-        def push(run_planes, a):
-            stack.append((0, a, run_planes))
-            while len(stack) >= 2 and stack[-1][0] == stack[-2][0]:
-                lvl, _, b = stack.pop()
-                _, pos1, a_pl = stack.pop()
-                parent = pos1 >> 1
-                merged = _merge_pair(
-                    a_pl, b, log_slot + lvl, num_cmp, cfg,
-                    descending=(parent & 1) == 1,
-                )
-                stack.append((lvl + 1, parent, merged))
-
-        push([own[i] for i in range(own.shape[0])], 0)
-        for shift in range(1, group_size):
-            r, rc = wave(shift)
-            rcounts.append(rc)
-            push([r[i] for i in range(r.shape[0])], shift)
-        for a in range(group_size, n_runs):
-            push(sentinel_run(), a)
-        assert len(stack) == 1
-        merged = stack[0][2]
-    else:
-        runs = [own]
-        for shift in range(1, group_size):
-            r, rc = wave(shift)
-            rcounts.append(rc)
-            runs.append(r)
-        runs += [jnp.stack(sentinel_run()) for _ in range(n_runs - group_size)]
-        flat = jnp.concatenate(runs, axis=-1)  # (P, n_runs·slot)
-        planes_in = [flat[i].reshape(-1, LANES) for i in range(flat.shape[0])]
-        out = bitonic.merge_sorted_runs(
-            planes_in, log_slot, num_cmp,
-            cfg.chunk_rows if num_cmp == 1 else cfg.stable_chunk_rows,
-            interpret=resolve_interpret(cfg),
-        )
-        merged = [o.reshape(-1) for o in out]
-    valid = jnp.sum(jnp.stack(rcounts))
-    return merged, valid, rcounts
+def _sort_planes(planes, num_cmp):
+    """Sort [key, (global index), payloads...] by key, or by (key, global
+    index) when num_cmp == 2."""
+    if len(planes) == 1:
+        return [jax.lax.sort(planes[0])]
+    if num_cmp == 2:
+        perm = core.lex_argsort(planes[:2])
+        return [p[perm] for p in planes]
+    sk, rest = core.sort_by_key(planes[0], planes[1:])
+    return [sk, *rest]
 
 
 def _pack_slots(planes, bounds, counts, group_size, slot, num_cmp):
     """Pack contiguous runs [bounds[g], bounds[g+1]) of sorted planes into
-    fixed sentinel-padded slots — (P, G, slot)."""
+    fixed padded slots — one (G, slot) array per plane."""
     j = jax.lax.broadcasted_iota(jnp.int32, (group_size, slot), 1)
-    in_slot = (j < counts[:, None]).astype(jnp.int32)
+    in_slot = j < counts[:, None]
     send = []
     for i, p in enumerate(planes):
-        fill = _plane_fill(i, num_cmp)
-        padded = jnp.concatenate([p, jnp.full((slot,), fill, jnp.int32)])
+        fill = _plane_fill(i, num_cmp, p.dtype)
+        padded = jnp.concatenate([p, jnp.full((slot,), fill, p.dtype)])
         rows = jnp.stack([
             jax.lax.dynamic_slice(padded, (bounds[s],), (slot,))
             for s in range(group_size)
-        ])  # (G, slot)
-        send.append(jnp.where(in_slot != 0, rows, fill))
-    return jnp.stack(send)  # (P, G, slot)
+        ])
+        send.append(jnp.where(in_slot, rows, fill))
+    return send
 
 
-def _shard_body(keys, payloads, n_dev, slot, n, cfg, axis, stable, overlap,
-                hier=None):
+def _group_exchange(send, counts, axis, me_g, group_size, group_sel,
+                    num_cmp):
+    """Exchange fixed slots within a device subgroup and sort the arrivals.
+
+    send: one (G, slot) array per plane — slot g is bound for the group's
+    g-th device; counts: (G,) valid lengths; group_sel[i] = (g, flat_of)
+    maps a flat axis index to its group coordinate and back (defines the
+    subgroup permutation for ppermute).  Returns (sorted planes of G·slot
+    rows, the valid total); padding sorts behind every real row.
+
+    Shared by the flat exchange and both phases of the hierarchical one.
+    """
+
+    def wave_perm(shift):
+        return [
+            (i, flat_of[(g + shift) % group_size])
+            for i, (g, flat_of) in group_sel.items()
+        ]
+
+    def take(x, g):
+        return jax.lax.dynamic_index_in_dim(x, g, keepdims=False)
+
+    runs = [[take(p, me_g) for p in send]]
+    valid = take(counts, me_g)
+    for shift in range(1, group_size):
+        dest = (me_g + shift) % group_size
+        perm = wave_perm(shift)
+        runs.append(jax.lax.ppermute([take(p, dest) for p in send], axis, perm))
+        valid = valid + jax.lax.ppermute(take(counts, dest), axis, perm)
+    planes = [jnp.concatenate(col) for col in zip(*runs)]
+    return _sort_planes(planes, num_cmp), valid
+
+
+def _shard_body(keys, payloads, n_dev, slot, n, axis, num_cmp, hier=None):
     """Per-shard body (runs under shard_map). keys: (m,) uint32.
 
     hier=None: flat exchange (D-1 waves, slot = int).  hier=(Dr, Dc):
     two-phase hierarchical exchange (slot = (slot1, slot2) pow2 sizes).
+    num_cmp == 2 carries a global-index column (payload sorts).
 
     n is the GLOBAL valid count: ragged inputs are padded to D·m by the
     wrapper, pads sit at the global tail, so this shard's valid prefix is
@@ -257,14 +149,12 @@ def _shard_body(keys, payloads, n_dev, slot, n, cfg, axis, stable, overlap,
     me = jax.lax.axis_index(axis)
     m_valid = jnp.clip(n - me * m, 0, m)
 
-    # (1) local sort — ascending by biased key (+ global index when stable)
-    biased = (keys ^ _SIGN).astype(jnp.int32)
-    planes = [biased]
-    if stable:
+    # (1) local sort: stable by key, so rows of equal key stay in global
+    # index order and the valid prefix stays ahead of the ragged pads
+    planes = [keys]
+    if num_cmp == 2:
         planes.append(me * m + jnp.arange(m, dtype=jnp.int32))
-    planes += [jax.lax.bitcast_convert_type(p, jnp.int32) for p in payloads]
-    num_cmp = 2 if stable else 1
-    planes = _local_sort_planes(planes, m, cfg, num_cmp)
+    planes = _sort_planes(planes + list(payloads), 1)
     s_key = planes[0]
 
     # (2) sample splitters from the sorted shard's VALID prefix.  Exact
@@ -280,48 +170,37 @@ def _shard_body(keys, payloads, n_dev, slot, n, cfg, axis, stable, overlap,
     spos = jnp.arange(1, n_dev, dtype=jnp.int32) * ns  # = j·(ns·D)//D exactly
     splitters = gsorted[spos]  # (D-1,) — device s gets [split[s-1], split[s])
 
-    n_planes_ = len(planes)
-
-    def split_ranks(sorted_key, valid_len, split_vals):
-        """Rank of each splitter in the valid prefix (pads are
-        sentinel-max and would otherwise count into the top splitter's
-        run when a splitter equals the sentinel)."""
-        return [
-            jnp.minimum(
-                jnp.sum((sorted_key < sv).astype(jnp.int32)), valid_len
-            )
+    def split_bounds(sorted_key, valid_len, split_vals):
+        """Run boundaries at the splitters within the valid prefix (pads
+        are the maximum key and would otherwise count into the top
+        splitter's run when a splitter equals it)."""
+        ranks = [
+            jnp.minimum(jnp.sum(sorted_key < sv, dtype=jnp.int32), valid_len)
             for sv in split_vals
         ]
-
-    flat_sel = {
-        i: (i, list(range(n_dev))) for i in range(n_dev)
-    }
+        bounds = jnp.stack([jnp.int32(0), *ranks, valid_len])
+        return bounds, bounds[1:] - bounds[:-1]
 
     if hier is None:
         # (3) flat: D runs at final-splitter boundaries, D-1 waves
-        ranks = split_ranks(
+        bounds, counts = split_bounds(
             s_key, m_valid, [splitters[s] for s in range(n_dev - 1)]
         )
-        bounds = jnp.stack([jnp.int32(0), *ranks, m_valid])
-        counts = bounds[1:] - bounds[:-1]
         overflow = jax.lax.pmax(jnp.max(counts - slot), axis) > 0
         send = _pack_slots(planes, bounds, counts, n_dev, slot, num_cmp)
-        merged, valid, _ = _group_exchange_merge(
-            send, counts, axis, me, n_dev, flat_sel, slot, num_cmp, cfg,
-            overlap, n_planes_,
+        flat_sel = {i: (i, list(range(n_dev))) for i in range(n_dev)}
+        merged, valid = _group_exchange(
+            send, counts, axis, me, n_dev, flat_sel, num_cmp
         )
     else:
-        # (3') hierarchical two-phase exchange (VERDICT r4 #8): factor the
-        # axis as D = Dr x Dc (me = r·Dc + c).  Phase 1 routes by dest
-        # BLOCK r' (final devices [r'·Dc, (r'+1)·Dc) — a contiguous
-        # splitter range, so each block's keys are ONE contiguous slice of
-        # the sorted shard) along the Dr column peers {(*, c)}: Dr-1
-        # waves.  The arrivals (all destined to block r') merge into one
-        # sorted run; phase 2 slices it at the block's internal final
-        # splitters and routes slice c' along the Dc row peers {(r', *)}:
-        # Dc-1 waves.  Total waves (Dr-1)+(Dc-1) ≈ 2√D - 2 instead of
-        # D-1, for 2x the per-key bytes (each key moves twice) — the
-        # standard latency-vs-bandwidth trade that wins at slice scale.
+        # (3') hierarchical two-phase exchange: factor the axis as
+        # D = Dr x Dc (me = r·Dc + c).  Phase 1 routes by dest BLOCK r'
+        # (final devices [r'·Dc, (r'+1)·Dc) — a contiguous splitter range,
+        # so each block's keys are ONE contiguous slice of the sorted
+        # shard) along the Dr column peers {(*, c)}: Dr-1 waves.  The
+        # arrivals (all destined to block r') are sorted into one run;
+        # phase 2 slices it at the block's internal final splitters and
+        # routes slice c' along the Dc row peers {(r', *)}: Dc-1 waves.
         d_r, d_c = hier
         r_me = me // d_c
         c_me = me % d_c
@@ -336,18 +215,15 @@ def _shard_body(keys, payloads, n_dev, slot, n, cfg, axis, stable, overlap,
         slot1, slot2 = slot  # phase slot sizes (pow2)
 
         # phase 1: block boundaries = every Dc-th splitter
-        block_splits = [splitters[b * d_c - 1] for b in range(1, d_r)]
-        ranks1 = split_ranks(s_key, m_valid, block_splits)
-        bounds1 = jnp.stack([jnp.int32(0), *ranks1, m_valid])
-        counts1 = bounds1[1:] - bounds1[:-1]  # (Dr,)
-        ovf1 = jnp.max(counts1 - slot1)
+        bounds1, counts1 = split_bounds(
+            s_key, m_valid, [splitters[b * d_c - 1] for b in range(1, d_r)]
+        )
         send1 = _pack_slots(planes, bounds1, counts1, d_r, slot1, num_cmp)
-        merged1, valid1, _ = _group_exchange_merge(
-            send1, counts1, axis, r_me, d_r, col_sel, slot1, num_cmp, cfg,
-            overlap, n_planes_,
+        merged1, valid1 = _group_exchange(
+            send1, counts1, axis, r_me, d_r, col_sel, num_cmp
         )
 
-        # phase 2: slice my block's merged run at its internal final
+        # phase 2: slice my block's sorted run at its internal final
         # splitters (block index = my ROW coordinate r_me after phase 1)
         my_block_splits = [
             jax.lax.dynamic_index_in_dim(
@@ -355,20 +231,15 @@ def _shard_body(keys, payloads, n_dev, slot, n, cfg, axis, stable, overlap,
             )
             for j in range(d_c - 1)
         ]
-        ranks2 = split_ranks(merged1[0], valid1, my_block_splits)
-        bounds2 = jnp.stack([jnp.int32(0), *ranks2, valid1])
-        counts2 = bounds2[1:] - bounds2[:-1]  # (Dc,)
-        ovf2 = jnp.max(counts2 - slot2)
+        bounds2, counts2 = split_bounds(merged1[0], valid1, my_block_splits)
         send2 = _pack_slots(merged1, bounds2, counts2, d_c, slot2, num_cmp)
-        merged, valid, _ = _group_exchange_merge(
-            send2, counts2, axis, c_me, d_c, row_sel, slot2, num_cmp, cfg,
-            overlap, n_planes_,
+        merged, valid = _group_exchange(
+            send2, counts2, axis, c_me, d_c, row_sel, num_cmp
         )
-        overflow = jax.lax.pmax(jnp.maximum(ovf1, ovf2), axis) > 0
+        ovf = jnp.maximum(jnp.max(counts1 - slot1), jnp.max(counts2 - slot2))
+        overflow = jax.lax.pmax(ovf, axis) > 0
 
-    sorted_keys = merged[0].astype(jnp.uint32) ^ _SIGN
-    outs = [sorted_keys] + merged[1:]
-    return (*outs, valid.reshape(1), overflow.reshape(1))
+    return (*merged, valid.reshape(1), overflow.reshape(1))
 
 
 def _hier_factor(n_dev: int) -> tuple[int, int] | None:
@@ -376,28 +247,27 @@ def _hier_factor(n_dev: int) -> tuple[int, int] | None:
     (None when D is not a pow2 >= 4 — hier falls back to flat)."""
     if n_dev < 4 or n_dev & (n_dev - 1):
         return None
-    k = _log2(n_dev)
+    k = n_dev.bit_length() - 1
     return 1 << (k - k // 2), 1 << (k // 2)
 
 
-def _run_sharded(keys, payloads, mesh, axis, capacity, cfg, stable, overlap,
+def _run_sharded(keys, payloads, mesh, axis, capacity, with_index,
                  exchange="flat"):
-    cfg = cfg or tuned()
     if keys.dtype != jnp.uint32:
-        # int32 keys would silently bias/compare wrong — reject like
-        # ops.sort.
+        # int32 keys would silently compare wrong — reject like ops.sort.
         raise TypeError(f"keys must be uint32, got {keys.dtype}")
     for p in payloads:
         if p.shape != keys.shape or p.dtype.itemsize != 4:
             raise TypeError(
                 f"payloads must be 32-bit arrays of shape {keys.shape}"
             )
+    if exchange not in ("flat", "hier"):
+        raise ValueError(f"exchange must be 'flat' or 'hier', got {exchange!r}")
     n_dev = mesh.shape[axis]
     n = keys.shape[0]
-    # ragged n: pad to D·ceil(n/D) with sentinel keys at the global tail;
+    # ragged n: pad to D·ceil(n/D) with the maximum key at the global tail;
     # the shard body derives its valid prefix from n and never lets pads
-    # into the exchange.  Non-pow2 D is handled by the body's virtual
-    # sentinel runs.  (Both rejects lifted in round 4 — VERDICT r3 item 6.)
+    # into the exchange.
     m = cdiv(n, n_dev)
     padded_n = m * n_dev
     if padded_n != n:
@@ -412,74 +282,61 @@ def _run_sharded(keys, payloads, mesh, axis, capacity, cfg, stable, overlap,
     if hier is not None:
         d_r, d_c = hier
         slot = (
-            _pow2_pad(capacity * cdiv(m, d_r), min_total=LANES),
-            _pow2_pad(capacity * cdiv(m, d_c), min_total=LANES),
+            _pow2_pad(capacity * cdiv(m, d_r), min_total=SLOT_ALIGN),
+            _pow2_pad(capacity * cdiv(m, d_c), min_total=SLOT_ALIGN),
         )
     else:
-        slot = _pow2_pad(capacity * cdiv(n, n_dev * n_dev), min_total=LANES)
+        slot = _pow2_pad(capacity * cdiv(n, n_dev * n_dev), min_total=SLOT_ALIGN)
 
-    # Payload-carrying sorts always thread the global-index tiebreak
-    # internally: with num_cmp=1 a real key equal to the 0xFFFFFFFF pad
-    # sentinel TIES with pads, and the valid-prefix slicing could then ship
-    # a pad's zero payload in place of the real one (and one-sided tie
-    # exchanges may duplicate riders).  The tiebreak makes the comparator a
-    # total order, closing both; callers that asked stable=False simply
-    # don't get the index plane back.
-    internal_stable = stable or bool(payloads)
+    # Payload sorts order by (key, global index): stable across the mesh,
+    # and a real 0xFFFFFFFF key always sorts ahead of the slot padding, so
+    # the valid prefix keeps its payloads.
+    num_cmp = 2 if (with_index or payloads) else 1
     body = functools.partial(
-        _shard_body, n_dev=n_dev, slot=slot, n=n, cfg=cfg, axis=axis,
-        stable=internal_stable, overlap=overlap, hier=hier,
+        _shard_body, n_dev=n_dev, slot=slot, n=n, axis=axis,
+        num_cmp=num_cmp, hier=hier,
     )
-    n_extra = len(payloads) + (1 if internal_stable else 0)
+    n_out = 1 + len(payloads) + (num_cmp - 1)
     fn = shard_map(
         lambda k, *ps: body(k, ps),
         mesh=mesh,
         in_specs=(P(axis),) * (1 + len(payloads)),
-        out_specs=(P(axis),) * (1 + n_extra) + (P(axis), P(axis)),
-        # pallas_call outputs carry no varying-across-mesh annotation yet
-        check_vma=False,
+        out_specs=(P(axis),) * (n_out + 2),
     )
     *planes, valid, overflow = fn(keys, *payloads)
     planes = [p.reshape(n_dev, -1) for p in planes]
-    return planes, valid.reshape(-1), overflow.reshape(-1), stable
+    return planes, valid.reshape(-1), overflow.reshape(-1)
 
 
 @functools.partial(
-    jax.jit,
-    static_argnames=("mesh", "axis", "capacity", "cfg", "overlap",
-                     "exchange"),
+    jax.jit, static_argnames=("mesh", "axis", "capacity", "exchange")
 )
 def sort_sharded(
     keys,
     mesh: Mesh,
     axis: str = "d",
     capacity: int = 4,
-    cfg: SortConfig | None = None,
-    overlap: bool = True,
     exchange: str = "flat",
 ):
     """Distributed sort of uint32 keys sharded over `axis` of `mesh`.
 
     Returns (sorted_padded, valid, overflow):
       sorted_padded — (D, L) uint32, row d = device d's sorted shard,
-        sentinel-padded past `valid[d]`;
+        padded past `valid[d]`;
       valid — (D,) int32 count of real keys per device;
       overflow — (D,) bool, True anywhere means slot capacity was exceeded
         and the result must not be trusted (re-run with higher capacity).
     The concatenation of row 0's valid prefix, row 1's, ... is the globally
     sorted sequence.
     """
-    planes, valid, overflow, _ = _run_sharded(
-        keys, (), mesh, axis, capacity, cfg, stable=False, overlap=overlap,
-        exchange=exchange,
+    planes, valid, overflow = _run_sharded(
+        keys, (), mesh, axis, capacity, False, exchange
     )
     return planes[0], valid, overflow
 
 
 @functools.partial(
-    jax.jit,
-    static_argnames=("mesh", "axis", "capacity", "cfg", "stable", "overlap",
-                     "exchange"),
+    jax.jit, static_argnames=("mesh", "axis", "capacity", "exchange")
 )
 def sort_pairs_sharded(
     keys,
@@ -487,56 +344,55 @@ def sort_pairs_sharded(
     mesh: Mesh,
     axis: str = "d",
     capacity: int = 4,
-    cfg: SortConfig | None = None,
-    stable: bool = False,
-    overlap: bool = True,
     exchange: str = "flat",
 ):
-    """Distributed key+payload sort. values: any 32-bit dtype, same shape.
+    """Distributed stable key+payload sort. values: any 32-bit dtype, same
+    shape; equal keys keep their original relative order across the whole
+    mesh.
 
     Returns (sorted_keys, sorted_values, valid, overflow) with the same
-    row/prefix semantics as sort_sharded.  `stable=True` preserves the
-    original relative order of equal keys across the whole mesh (threads a
-    global-index tiebreak plane through every comparison).
+    row/prefix semantics as sort_sharded.
     """
-    planes, valid, overflow, _ = _run_sharded(
-        keys, (values,), mesh, axis, capacity, cfg,
-        stable=stable, overlap=overlap, exchange=exchange,
+    planes, valid, overflow = _run_sharded(
+        keys, (values,), mesh, axis, capacity, True, exchange
     )
-    vals = planes[-1]
-    out_vals = jax.lax.bitcast_convert_type(
-        vals, values.dtype
-    ) if values.dtype != jnp.int32 else vals
-    return planes[0], out_vals, valid, overflow
+    return planes[0], planes[-1], valid, overflow
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("mesh", "axis", "capacity", "cfg", "overlap"),
-)
+@functools.partial(jax.jit, static_argnames=("mesh", "axis", "capacity"))
 def argsort_sharded(
     keys,
     mesh: Mesh,
     axis: str = "d",
     capacity: int = 4,
-    cfg: SortConfig | None = None,
-    overlap: bool = True,
 ):
     """Distributed stable argsort: returns (sorted_keys, global_indices,
     valid, overflow).  global_indices[d, i] is the original flat position
     of sorted_padded[d, i]."""
-    planes, valid, overflow, _ = _run_sharded(
-        keys, (), mesh, axis, capacity, cfg, stable=True, overlap=overlap
+    planes, valid, overflow = _run_sharded(
+        keys, (), mesh, axis, capacity, True
     )
     return planes[0], planes[1], valid, overflow
+
+
+def _escalate(step, start_capacity, max_capacity):
+    """Run step(capacity) with capacity doubling until nothing overflows."""
+    c = start_capacity
+    while True:
+        *out, overflow = step(c)
+        if not bool(np.any(np.asarray(jax.device_get(overflow)))):
+            return (*out, c)
+        if c >= max_capacity:
+            raise RuntimeError(
+                f"dist_sort slot overflow persists at capacity={c}"
+            )
+        c *= 2
 
 
 def sort_sharded_auto(
     keys,
     mesh: Mesh,
     axis: str = "d",
-    cfg: SortConfig | None = None,
-    overlap: bool = True,
     exchange: str = "flat",
     start_capacity: int = 2,
     max_capacity: int = 64,
@@ -545,12 +401,10 @@ def sort_sharded_auto(
 
     sort_sharded's recv slots are static shapes (capacity × ceil(N/D²),
     pow2-rounded — XLA cannot size buffers from data), so the skew-safe
-    default capacity=4 makes the recv buffer ≈4–8× the shard (NOTES r5
-    memory audit: 134 MB per device for a 33.5 MB shard at L=2^23).  This
-    wrapper starts at capacity=2 — the mean per-(src,dst) count plus 2×
-    headroom for sampling noise; capacity=1 would sit exactly AT the
-    uniform mean and overflow on fluctuation — so recv ≈2–4× the shard.
-    It reads the
+    default capacity=4 makes the recv buffer ≈4–8× the shard.  This wrapper
+    starts at capacity=2 — the mean per-(src,dst) count plus 2× headroom
+    for sampling noise; capacity=1 would sit exactly AT the uniform mean
+    and overflow on fluctuation — so recv ≈2–4× the shard.  It reads the
     overflow flag — one host sync — and doubles capacity only when the
     data's (src,dst) skew actually demands it: the deterministic-relaunch
     idiom of utils/guard.py applied to slot overflow (sorting is
@@ -559,22 +413,14 @@ def sort_sharded_auto(
     shard lands on one destination) escalates to capacity ≈ D.
 
     Returns (sorted_padded, valid, capacity_used).  Raises RuntimeError if
-    max_capacity still overflows (then N/D² slots cannot describe the
-    skew; use strategy="radix" splitter diagnostics to see why).
+    max_capacity still overflows.
     """
-    c = start_capacity
-    while True:
-        out, valid, overflow = sort_sharded(
-            keys, mesh, axis=axis, capacity=c, cfg=cfg, overlap=overlap,
-            exchange=exchange,
-        )
-        if not bool(np.any(np.asarray(jax.device_get(overflow)))):
-            return out, valid, c
-        if c >= max_capacity:
-            raise RuntimeError(
-                f"dist_sort slot overflow persists at capacity={c}"
-            )
-        c *= 2
+    return _escalate(
+        lambda c: sort_sharded(
+            keys, mesh, axis=axis, capacity=c, exchange=exchange
+        ),
+        start_capacity, max_capacity,
+    )
 
 
 def sort_pairs_sharded_auto(
@@ -582,9 +428,6 @@ def sort_pairs_sharded_auto(
     values,
     mesh: Mesh,
     axis: str = "d",
-    cfg: SortConfig | None = None,
-    stable: bool = False,
-    overlap: bool = True,
     exchange: str = "flat",
     start_capacity: int = 2,
     max_capacity: int = 64,
@@ -592,19 +435,12 @@ def sort_pairs_sharded_auto(
     """sort_sharded_auto for key+payload shards: same memory-tight
     capacity-escalation contract (see sort_sharded_auto), returning
     (sorted_keys, sorted_values, valid, capacity_used)."""
-    c = start_capacity
-    while True:
-        k, v, valid, overflow = sort_pairs_sharded(
-            keys, values, mesh, axis=axis, capacity=c, cfg=cfg,
-            stable=stable, overlap=overlap, exchange=exchange,
-        )
-        if not bool(np.any(np.asarray(jax.device_get(overflow)))):
-            return k, v, valid, c
-        if c >= max_capacity:
-            raise RuntimeError(
-                f"dist_sort slot overflow persists at capacity={c}"
-            )
-        c *= 2
+    return _escalate(
+        lambda c: sort_pairs_sharded(
+            keys, values, mesh, axis=axis, capacity=c, exchange=exchange
+        ),
+        start_capacity, max_capacity,
+    )
 
 
 def collect(sorted_padded, valid):

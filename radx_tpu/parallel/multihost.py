@@ -4,7 +4,7 @@ The reference is strictly single-device (SURVEY §2e: no comm code at all);
 this module is the net-new host-framework glue: `jax.distributed.initialize`
 wiring so every process sees the global device set, a global mesh
 constructor, and result-collection helpers.  The same `parallel.dist_sort`
-shard_map code then runs unchanged over ICI+DCN — collectives ride whatever
+shard_map code then runs unchanged across hosts — collectives ride whatever
 transport the mesh spans, which is the whole point of expressing the
 exchange as `ppermute`/`all_gather` instead of hand-rolled NCCL (the
 scaling-book recipe: pick a mesh, annotate shardings, let XLA place the
@@ -30,10 +30,8 @@ def init_multihost(
 ):
     """Connect this process to the job's coordinator.
 
-    Call once per process before any other JAX API.  On TPU pods the three
-    arguments are discovered automatically (pass None via
-    `jax.distributed.initialize()` directly); this explicit form also
-    serves CPU/GPU clusters and the multi-process CPU test rig.
+    Call once per process before any other JAX API.  The explicit form
+    serves GPU clusters and the multi-process CPU test rig alike.
     """
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
@@ -71,8 +69,8 @@ def allgather_result(x):
 
 def _collective_timeout_s(n_keys: int, n_devices: int) -> float:
     """Deadline for one distributed sort step: a generous multiple of the
-    worst-case single-chip rate (0.1 G keys/s covers interpret-mode CI and
-    cold caches) plus a fixed floor for bring-up and DCN latency."""
+    worst-case rate (0.1 G keys/s covers CPU test meshes and cold caches)
+    plus a fixed floor for bring-up and network latency."""
     per_device = max(n_keys // max(n_devices, 1), 1)
     return 60.0 + per_device / 0.1e9 * 20.0
 
@@ -82,7 +80,6 @@ def sort_sharded_guarded(
     mesh: Mesh,
     *,
     capacity: float | None = None,
-    cfg=None,
     timeout_s: float | None = None,
     retries: int = 2,
     on_retry=None,
@@ -108,8 +105,8 @@ def sort_sharded_guarded(
 
     def step():
         if capacity is None:
-            return dist_sort.sort_sharded(keys, mesh, cfg=cfg)
-        return dist_sort.sort_sharded(keys, mesh, capacity=capacity, cfg=cfg)
+            return dist_sort.sort_sharded(keys, mesh)
+        return dist_sort.sort_sharded(keys, mesh, capacity=capacity)
 
     return guard.retry_deterministic(
         step, retries=retries, timeout_s=timeout_s, on_retry=on_retry

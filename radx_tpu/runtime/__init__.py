@@ -1,5 +1,5 @@
 """Native host runtime (C++ via ctypes): data generation, validation,
-staging — the TPU framework's counterpart of the reference's C++ host
+staging — the engine's counterpart of the reference's C++ host
 harness (ComputeFramework/TestSort, src/test/sort.cpp)."""
 
 from radx_tpu.runtime.native import (  # noqa: F401

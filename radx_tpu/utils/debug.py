@@ -3,35 +3,11 @@
 The reference's only correctness tooling is commented-out Vulkan validation
 layers (sort.hpp:121-133) and manual RenderDoc captures.  Here:
 
-  * `interpret_parity` — run a pipeline twice, compiled and in Pallas
-    interpreter mode, and compare bit-exactly.  The interpreter executes
-    kernels sequentially with reference semantics, so a mismatch isolates
-    compiled-lowering / synchronization bugs (the closest TPU notion of a
-    "race": DMA/aliasing hazards in the compiled schedule).
   * `checked` — wrap a jittable function with jax.experimental.checkify to
     surface NaN / OOB-index / div-by-zero errors from inside jit.
 """
 
 from __future__ import annotations
-
-import numpy as np
-
-
-def interpret_parity(build_fn, *args, atol=0):
-    """build_fn(interpret: bool) -> callable; runs both modes on args and
-    compares outputs bit-exactly.  Returns (ok, max_abs_diff)."""
-    import jax
-
-    compiled = build_fn(False)
-    interp = build_fn(True)
-    a = jax.device_get(compiled(*args))
-    b = jax.device_get(interp(*args))
-    leaves_a, leaves_b = jax.tree.leaves(a), jax.tree.leaves(b)
-    worst = 0
-    for x, y in zip(leaves_a, leaves_b):
-        d = np.max(np.abs(np.asarray(x).astype(np.int64) - np.asarray(y).astype(np.int64)))
-        worst = max(worst, int(d))
-    return worst <= atol, worst
 
 
 def checked(fn):

@@ -6,7 +6,7 @@ radx_implement.inl:446) and fence waits block forever (INT64_MAX,
 radx_utils.hpp:201-244).  Multi-host collectives make that untenable: a
 peer that dies mid-`all_to_all` leaves every other process blocked
 indefinitely.  XLA cannot abort an in-flight executable, so the honest
-TPU-native contract is detect-and-relaunch:
+contract is detect-and-relaunch:
 
   * `watchdog` — dispatch the jitted step, wait for completion on a worker
     thread, and raise `DeviceTimeout` if the deadline passes (the stuck

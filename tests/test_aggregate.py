@@ -1,21 +1,26 @@
-"""Dense MXU hash-aggregate (kernels/aggregate.py + ops.groupby_dense)
-vs NumPy reference semantics."""
+"""Dense aggregate (ops/groupby.dense_aggregate + groupby_dense) vs NumPy
+reference semantics."""
 
+import functools
+
+import jax
 import numpy as np
 import pytest
 
-from radx_tpu.config import SortConfig
-from radx_tpu.kernels import aggregate
+from radx_tpu.ops import groupby as groupby_ops
 from radx_tpu.ops.groupby import groupby_dense
 
-CFG = SortConfig(chunk_rows=8)
+
+@functools.partial(jax.jit, static_argnames=("bins", "agg"))
+def _dense(keys, vals, bins, agg):
+    return groupby_ops.dense_aggregate(keys, vals, bins, agg)
 
 
 @pytest.mark.parametrize("bins,n", [(128, 3000), (1024, 20000), (65536, 8192)])
 def test_dense_sums_match_numpy(rng, bins, n):
     keys = rng.integers(0, bins, n, dtype=np.uint32)
     vals = rng.integers(0, 2**32, n, dtype=np.uint32)
-    sums, counts = aggregate.dense_sums(keys, vals, bins=bins, interpret=True)
+    sums, counts = _dense(keys, vals, bins, "sum")
     want_counts = np.bincount(keys, minlength=bins).astype(np.int32)
     want_sums = np.zeros(bins, np.uint64)
     np.add.at(want_sums, keys, vals.astype(np.uint64))
@@ -26,11 +31,11 @@ def test_dense_sums_match_numpy(rng, bins, n):
 
 
 def test_dense_sums_nonaligned_tail(rng):
-    # n not a multiple of tile elements: padded tail must not contribute.
+    # odd n, every row in bin 0: nothing else may contribute.
     n, bins = 4097, 256
-    keys = np.zeros(n, np.uint32)  # all keys 0 — pad also maps to bin 0
+    keys = np.zeros(n, np.uint32)
     vals = np.ones(n, np.uint32)
-    sums, counts = aggregate.dense_sums(keys, vals, bins=bins, interpret=True)
+    sums, counts = _dense(keys, vals, bins, "sum")
     assert int(counts[0]) == n
     assert int(sums[0]) == n
 
@@ -40,7 +45,7 @@ def test_groupby_dense_matches_groupby(rng, agg):
     n, bins = 20000, 512
     keys = rng.integers(0, 500, n, dtype=np.uint32)
     vals = rng.integers(0, 1000, n, dtype=np.uint32)
-    uk, out, ng = groupby_dense(keys, vals, agg, bins=bins, cfg=CFG)
+    uk, out, ng = groupby_dense(keys, vals, agg, bins=bins)
     ng = int(ng)
     uniq = np.unique(keys)
     assert ng == uniq.size
@@ -58,7 +63,7 @@ def test_groupby_dense_int32_values(rng):
     n = 5000
     keys = rng.integers(0, 128, n, dtype=np.uint32)
     vals = rng.integers(-(2**31), 2**31, n, dtype=np.int64).astype(np.int32)
-    uk, out, ng = groupby_dense(keys, vals, "sum", bins=128, cfg=CFG)
+    uk, out, ng = groupby_dense(keys, vals, "sum", bins=128)
     ng = int(ng)
     uniq = np.unique(keys)
     want = np.array(
@@ -73,28 +78,31 @@ def test_groupby_dense_rejects_out_of_range(rng):
     keys = np.array([0, 5, 999], np.uint32)
     vals = np.ones(3, np.uint32)
     with pytest.raises(ValueError, match="requires every key"):
-        groupby_dense(keys, vals, "sum", bins=128, cfg=CFG)
+        groupby_dense(keys, vals, "sum", bins=128)
 
 
 def test_groupby_dense_validation():
     k = np.zeros(4, np.uint32)
     v = np.zeros(4, np.uint32)
     with pytest.raises(ValueError):
-        groupby_dense(k, v, "min", bins=16384, cfg=CFG)  # extrema cap 2^13
+        groupby_dense(k, v, "min", bins=0)
     with pytest.raises(ValueError):
-        groupby_dense(k, v, "sum", bins=100, cfg=CFG)
-    # int32 bin ids are accepted since round 5 (bitcast identity in range);
-    # float32 keys stay rejected
-    uk_i, _, ng_i = groupby_dense(
-        k.astype(np.int32), v, "sum", bins=128, cfg=CFG
-    )
+        groupby_dense(k, v, "sum", bins=(1 << 24) + 1)
+    with pytest.raises(ValueError):
+        groupby_dense(k, v, "median", bins=128)
+    # int32 bin ids are accepted (bitcast identity in range); float32 keys
+    # stay rejected
+    uk_i, _, ng_i = groupby_dense(k.astype(np.int32), v, "sum", bins=128)
     assert uk_i.dtype == np.int32 and int(ng_i) == 1
     with pytest.raises(TypeError):
-        groupby_dense(k.astype(np.float32), v, "sum", bins=128, cfg=CFG)
+        groupby_dense(k.astype(np.float32), v, "sum", bins=128)
     with pytest.raises(TypeError):
-        groupby_dense(k, v.astype(np.float32), "sum", bins=128, cfg=CFG)
+        groupby_dense(k, v.astype(np.int16), "sum", bins=128)
+    # float32 sums are accepted (unspecified summation order, like groupby)
+    _, out_f, _ = groupby_dense(k, v.astype(np.float32) + 1.5, "sum", bins=8)
+    assert float(out_f[0]) == 6.0
     uk, out, ng = groupby_dense(
-        np.zeros(0, np.uint32), np.zeros(0, np.uint32), "sum", cfg=CFG
+        np.zeros(0, np.uint32), np.zeros(0, np.uint32), "sum"
     )
     assert int(ng) == 0
 
@@ -102,14 +110,9 @@ def test_groupby_dense_validation():
 @pytest.mark.parametrize("bins,n", [(128, 3000), (1024, 20000)])
 @pytest.mark.parametrize("is_min", [True, False])
 def test_dense_extrema_match_numpy(rng, bins, n, is_min):
-    from radx_tpu.kernels import aggregate
-
     keys = rng.integers(0, bins, n, dtype=np.uint32)
-    # order-isomorphic i32 inputs: exercise the kernel directly with i32
     vals = rng.integers(-(2**31), 2**31 - 1, n).astype(np.int32)
-    ext, counts = aggregate.dense_extrema(
-        keys, vals, bins=bins, is_min=is_min, interpret=True
-    )
+    ext, counts = _dense(keys, vals, bins, "min" if is_min else "max")
     want_counts = np.bincount(keys, minlength=bins).astype(np.int32)
     np.testing.assert_array_equal(np.asarray(counts), want_counts)
     fold = np.minimum if is_min else np.maximum
@@ -132,8 +135,8 @@ def test_groupby_dense_minmax_matches_groupby(rng, agg, dtype):
         vals = rng.integers(-(2**31), 2**31 - 1, n).astype(np.int32)
     else:
         vals = rng.integers(0, 2**32, n, dtype=np.uint32)
-    uk, out, ng = groupby_dense(keys, vals, agg, bins=bins, cfg=CFG)
-    suk, sout, sng = groupby(keys, vals, agg, cfg=CFG)
+    uk, out, ng = groupby_dense(keys, vals, agg, bins=bins)
+    suk, sout, sng = groupby(keys, vals, agg)
     ng, sng = int(ng), int(sng)
     assert ng == sng
     np.testing.assert_array_equal(np.asarray(uk)[:ng], np.asarray(suk)[:sng])
@@ -152,12 +155,12 @@ def test_groupby_dense_extreme_value_edges(rng):
     # still surface (presence comes from counts, not from the identity).
     keys = np.array([0, 0, 3, 3], np.uint32)
     vals = np.array([0xFFFFFFFF, 0xFFFFFFFF, 0, 0xFFFFFFFF], np.uint32)
-    uk, out, ng = groupby_dense(keys, vals, "max", bins=128, cfg=CFG)
+    uk, out, ng = groupby_dense(keys, vals, "max", bins=128)
     assert int(ng) == 2
     np.testing.assert_array_equal(
         np.asarray(out)[:2], np.array([0xFFFFFFFF, 0xFFFFFFFF], np.uint32)
     )
-    uk, out, ng = groupby_dense(keys, vals, "min", bins=128, cfg=CFG)
+    uk, out, ng = groupby_dense(keys, vals, "min", bins=128)
     np.testing.assert_array_equal(
         np.asarray(out)[:2], np.array([0xFFFFFFFF, 0], np.uint32)
     )

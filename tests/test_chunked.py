@@ -3,10 +3,8 @@
 import numpy as np
 import pytest
 
-from radx_tpu.config import SortConfig
 from radx_tpu.ops.chunked import filter_chunked, groupby_chunked
 
-CFG = SortConfig(interpret=True, chunk_rows=64, stable_chunk_rows=64)
 
 
 def test_filter_chunked_matches_numpy():
@@ -15,7 +13,7 @@ def test_filter_chunked_matches_numpy():
     mask = (rng.random(n) < 0.3).astype(np.int32)
     a = rng.integers(0, 2**32, n, dtype=np.uint32)
     b = rng.random(n).astype(np.float32)
-    (ga, gb), cnt = filter_chunked(mask, [a, b], CFG, slab=9000)
+    (ga, gb), cnt = filter_chunked(mask, [a, b], slab=9000)
     keep = mask != 0
     assert cnt == int(keep.sum())
     np.testing.assert_array_equal(ga, a[keep])
@@ -25,9 +23,9 @@ def test_filter_chunked_matches_numpy():
 def test_filter_chunked_empty_and_full():
     n = 5000
     a = np.arange(n, dtype=np.uint32)
-    (ga,), cnt = filter_chunked(np.zeros(n, np.int32), [a], CFG, slab=2000)
+    (ga,), cnt = filter_chunked(np.zeros(n, np.int32), [a], slab=2000)
     assert cnt == 0 and ga.shape[0] == 0
-    (ga,), cnt = filter_chunked(np.ones(n, np.int32), [a], CFG, slab=2000)
+    (ga,), cnt = filter_chunked(np.ones(n, np.int32), [a], slab=2000)
     assert cnt == n
     np.testing.assert_array_equal(ga, a)
 
@@ -38,7 +36,7 @@ def test_groupby_chunked_matches_numpy(agg):
     n = 30000
     keys = rng.integers(0, 200, n, dtype=np.uint32)
     vals = rng.integers(0, 1000, n, dtype=np.int64).astype(np.int32)
-    uk, out, ng = groupby_chunked(keys, vals, agg, CFG, slab=7000)
+    uk, out, ng = groupby_chunked(keys, vals, agg, slab=7000)
     want_k = np.unique(keys)
     assert ng == want_k.shape[0]
     np.testing.assert_array_equal(uk, want_k)
@@ -60,7 +58,7 @@ def test_groupby_chunked_high_cardinality_host_merge():
     n = 20000
     keys = rng.permutation(n).astype(np.uint32)
     vals = rng.integers(0, 1000, n, dtype=np.int64).astype(np.int32)
-    uk, out, ng = groupby_chunked(keys, vals, "sum", CFG, slab=5000)
+    uk, out, ng = groupby_chunked(keys, vals, "sum", slab=5000)
     assert ng == n
     order = np.argsort(keys)
     np.testing.assert_array_equal(uk, keys[order])
@@ -72,7 +70,7 @@ def test_sort_chunked_matches_npsort(rng):
 
     n = 40_000  # several 8192-elem slabs + ragged tail
     keys = rng.integers(0, 2**32, n, dtype=np.uint32)
-    got = sort_chunked(keys, CFG, slab=8192)
+    got = sort_chunked(keys, slab=8192)
     np.testing.assert_array_equal(got, np.sort(keys))
 
 
@@ -80,5 +78,5 @@ def test_sort_chunked_single_slab(rng):
     from radx_tpu.ops.chunked import sort_chunked
 
     keys = rng.integers(0, 2**32, 3000, dtype=np.uint32)
-    got = sort_chunked(keys, CFG, slab=8192)
+    got = sort_chunked(keys, slab=8192)
     np.testing.assert_array_equal(got, np.sort(keys))

@@ -1,36 +1,34 @@
-"""Direct tests for the mask-compaction kernel (kernels/compact.py).
+"""Direct tests for the stable compaction helper (ops/core.compact).
 
-Every relational op rides this kernel (filter directly; groupby/lazy/dense
-aggregate via ops/filter._compact_jit), so it gets its own coverage beyond
-the operator-level tests: densities from all-dropped to all-kept, plane
-counts 1-3, chunk heights that exercise both the vectorized (< 2^K_VEC
-rows) and scalar-looped merge levels, multi-chunk stitching, and ragged n.
+Every relational op rides it (filter directly; groupby, distinct, the
+joins and the dense aggregate compact their results), so it gets its own
+coverage beyond the operator-level tests: densities from all-dropped to
+all-kept, column counts 1-3, blocky and ragged masks, and order.
 """
 
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 
-from radx_tpu.kernels import compact
+from radx_tpu.ops import core
 
 
-def _run(mask, planes, c_rows):
-    outs, count = compact.compact_flat(
-        jnp.asarray(mask.astype(np.int32)),
-        [jnp.asarray(p.astype(np.int32)) for p in planes],
-        c_rows,
-        interpret=True,
+def _run(mask, planes, c_rows=None):
+    outs, count = jax.jit(core.compact)(
+        jnp.asarray(mask), [jnp.asarray(p) for p in planes]
     )
     return [np.asarray(o) for o in outs], int(count)
 
 
-def _check(mask, planes, c_rows):
-    outs, count = _run(mask, planes, c_rows)
+def _check(mask, planes, c_rows=None):
+    outs, count = _run(mask, planes)
     keep = mask != 0
     assert count == int(keep.sum())
     for p, o in zip(planes, outs):
         np.testing.assert_array_equal(o[:count], p[keep])
+        assert not o[count:].any()  # the tail is zero
 
 
 @pytest.mark.parametrize("density", [0.0, 0.03, 0.5, 0.97, 1.0])
@@ -52,16 +50,14 @@ def test_plane_counts(rng, n_planes):
 
 @pytest.mark.parametrize("c_rows", [8, 16, 64])
 def test_chunk_heights_cover_scalar_levels(rng, c_rows):
-    # c_rows=8 hits only vectorized merge levels (K_VEC=3); 16/64 exercise
-    # the dynamic-window scalar pair loop for levels 3+.
     n = c_rows * 128
     mask = (rng.random(n) < 0.3).astype(np.int32)
     _check(mask, [np.arange(n, dtype=np.int32)], c_rows)
 
 
 def test_multi_chunk_stitch(rng):
-    # 4 chunks; chunk valid-prefix lengths differ so the forward
-    # dynamic_update_slice stitch must overwrite predecessors' garbage.
+    # blocks of very different density: every block's kept rows land
+    # right behind the previous block's.
     c_rows, n_chunks = 8, 4
     n = c_rows * 128 * n_chunks
     mask = np.zeros(n, np.int32)
@@ -75,9 +71,7 @@ def test_multi_chunk_stitch(rng):
 
 
 def test_multi_chunk_stitch_scalar_levels_empty_first(rng):
-    # r4 advice: combine multi-chunk stitching WITH the scalar merge levels
-    # (c_rows >= 16) and make the FIRST chunk entirely empty, so the stitch
-    # writes chunk 1's prefix at offset 0 over chunk 0's garbage.
+    # the FIRST block is entirely empty, so block 1's rows start at 0.
     c_rows, n_chunks = 16, 4
     n = c_rows * 128 * n_chunks
     mask = np.zeros(n, np.int32)
@@ -91,7 +85,7 @@ def test_multi_chunk_stitch_scalar_levels_empty_first(rng):
 
 
 def test_ragged_n_pads_dropped(rng):
-    # n not a chunk multiple: the pad tail is masked out and never kept.
+    # n not a multiple of any block size.
     c_rows = 8
     n = c_rows * 128 * 2 + 577
     mask = (rng.random(n) < 0.5).astype(np.int32)
@@ -110,10 +104,22 @@ def test_stability_order_preserved(rng):
 
 
 def test_single_row_runs(rng):
-    # every row fully kept or fully dropped: run merges hit the lenA==full
-    # and lenA==0 skip branches.
+    # runs of 128 rows fully kept or fully dropped.
     c_rows = 16
     n = c_rows * 128
     rows_kept = rng.random(c_rows) < 0.5
     mask = np.repeat(rows_kept, 128).astype(np.int32)
     _check(mask, [np.arange(n, dtype=np.int32)], c_rows)
+
+
+@pytest.mark.parametrize(
+    "dtype", [np.uint32, np.int32, np.float32, np.bool_]
+)
+def test_column_dtypes_and_bool_mask(rng, dtype):
+    # columns keep their dtype; a boolean mask works like a 0/1 one
+    n = 3000
+    mask = rng.random(n) < 0.5
+    col = rng.integers(0, 2, n).astype(dtype)
+    _check(mask, [col])
+    outs, _ = _run(mask, [col])
+    assert outs[0].dtype == dtype

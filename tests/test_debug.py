@@ -1,34 +1,10 @@
-"""Debug utilities: interpret-vs-compiled parity harness and checkify."""
+"""Debug utilities: checkify wrapper."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from radx_tpu.kernels import bitonic
-from radx_tpu.utils.debug import checked, interpret_parity
-
-
-def test_interpret_parity_on_sort(rng):
-    # On CPU compiled Pallas is unavailable, so both sides interpret (this
-    # still exercises the harness plumbing); on TPU it is a real
-    # compiled-vs-reference check.
-    import jax
-
-    on_cpu = jax.devices()[0].platform != "tpu"
-    x = jnp.asarray(
-        rng.integers(-(2**31), 2**31, 4096, dtype=np.int32).reshape(32, 128)
-    )
-
-    def build(interpret):
-        def f(v):
-            return bitonic.sort_planes(
-                [v], 8, 1, interpret=interpret or on_cpu
-            )[0]
-
-        return f
-
-    ok, worst = interpret_parity(build, x)
-    assert ok, worst
+from radx_tpu.utils.debug import checked
 
 
 def test_checked_raises_on_nan():

@@ -1,7 +1,7 @@
 """Every file path claimed in a module docstring must exist in the tree.
 
 Guards against doc rot of the kind the round-3 review flagged: a docstring
-citing a repo module (e.g. ``kernels/radix_sort.py``) that was never
+citing a repo module (e.g. ``ops/radix_sort.py``) that was never
 written.  Reference citations (``*.comp``, ``*.hpp``, ``*.inl``, ``*.glsl``,
 ``*.cu``) are exempt — those name files in /root/reference, cited as
 file:line design rationale.
@@ -34,7 +34,7 @@ def _module_docstrings():
 def _resolves(claim: str) -> bool:
     if (REPO / claim).exists():
         return True
-    # paths are often cited package-relative (kernels/radix.py)
+    # paths are often cited package-relative (ops/core.py)
     return (PKG / claim).exists()
 
 

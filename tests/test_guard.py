@@ -79,7 +79,6 @@ def test_guarded_multihost_entry_detects_and_recovers(monkeypatch):
     DeviceTimeout path is deadline-driven and covered by the pure-guard
     tests above — injecting a real multi-second hang here would make the
     fast tier wait out the deadline.)"""
-    from radx_tpu.config import SortConfig
     from radx_tpu.parallel import dist_sort, make_mesh, multihost
 
     real = dist_sort.sort_sharded
@@ -96,10 +95,9 @@ def test_guarded_multihost_entry_detects_and_recovers(monkeypatch):
     mesh = make_mesh(2)
     rng = np.random.default_rng(7)
     keys = jnp.asarray(rng.integers(0, 2**32, 2048, dtype=np.uint32))
-    cfg = SortConfig(interpret=True, chunk_rows=8, stable_chunk_rows=8)
     seen = []
     out, valid, overflow = multihost.sort_sharded_guarded(
-        keys, mesh, capacity=4, cfg=cfg, timeout_s=600.0, retries=2,
+        keys, mesh, capacity=4, timeout_s=600.0, retries=2,
         on_retry=lambda a, e: seen.append(type(e).__name__),
     )
     assert seen == ["JaxRuntimeError"] and len(calls) == 2

@@ -11,11 +11,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from radx_tpu.config import SortConfig
 from radx_tpu.ops.lazy import LazyTable
 from radx_tpu.ops.table import Table
 
-CFG = SortConfig(chunk_rows=8, stable_chunk_rows=8, topk_chunk_rows=8)
 
 
 def _sales(rng, n=3000):
@@ -29,8 +27,8 @@ def _sales(rng, n=3000):
 def test_filter_matches_eager(rng):
     t = _sales(rng)
     mask = np.asarray(t.column("returned")) == 0
-    got = t.lazy(CFG).filter(mask).collect().to_numpy()
-    want = t.filter(mask.astype(np.int32), cfg=CFG).to_numpy()
+    got = t.lazy().filter(mask).collect().to_numpy()
+    want = t.filter(mask.astype(np.int32)).to_numpy()
     for name in ("store", "amount", "returned"):
         np.testing.assert_array_equal(got[name], want[name])
 
@@ -40,7 +38,7 @@ def test_groupby_matches_numpy(rng, agg):
     t = _sales(rng, n=2000)
     g = np.asarray(t.column("store"))
     v = np.asarray(t.column("amount"))
-    got = t.lazy(CFG).groupby("store", "amount", agg).collect().to_numpy()
+    got = t.lazy().groupby("store", "amount", agg).collect().to_numpy()
     uniq = np.unique(g)
     fn = {"sum": np.sum, "count": len, "min": np.min, "max": np.max}[agg]
     want = np.array([fn(v[g == u]) for u in uniq], dtype=np.uint32)
@@ -54,7 +52,7 @@ def test_filter_then_groupby_validity_threads(rng):
     g = np.asarray(t.column("store"))
     v = np.asarray(t.column("amount"))
     r = np.asarray(t.column("returned"))
-    lt = t.lazy(CFG)
+    lt = t.lazy()
     got = (
         lt.filter(lt.column("returned") == 0)
         .groupby("store", "amount", "sum")
@@ -78,8 +76,8 @@ def test_join_matches_eager_single_match(rng):
         amount=rng.integers(0, 1000, 500).astype(np.uint32),
     )
     got = (
-        facts.lazy(CFG)
-        .join(dims.lazy(CFG), on="key", value="amount", other_value="weight")
+        facts.lazy()
+        .join(dims.lazy(), on="key", value="amount", other_value="weight")
         .collect()
         .to_numpy()
     )
@@ -101,15 +99,15 @@ def test_join_multi_matches_eager(rng):
         key=rng.integers(0, 14, 400).astype(np.uint32),
         amount=rng.integers(0, 1000, 400).astype(np.uint32),
     )
-    lt, truncated = facts.lazy(CFG).join_multi(
-        dims.lazy(CFG), on="key", value="amount", other_value="weight",
+    lt, truncated = facts.lazy().join_multi(
+        dims.lazy(), on="key", value="amount", other_value="weight",
         max_matches=4,
     )
     assert not bool(truncated)
     got = lt.collect().to_numpy()
     want_t = facts.join(
         dims, on="key", value="amount", other_value="weight",
-        max_matches=4, cfg=CFG,
+        max_matches=4,
     ).to_numpy()
     got_rows = sorted(zip(got["key"], got["amount"], got["weight"]))
     want_rows = sorted(zip(want_t["key"], want_t["amount"], want_t["weight"]))
@@ -125,8 +123,8 @@ def test_join_multi_truncation_flag(rng):
         key=np.array([7, 8], np.uint32),
         amount=np.array([1, 2], np.uint32),
     )
-    lt, truncated = facts.lazy(CFG).join_multi(
-        dims.lazy(CFG), on="key", value="amount", other_value="weight",
+    lt, truncated = facts.lazy().join_multi(
+        dims.lazy(), on="key", value="amount", other_value="weight",
         max_matches=2,
     )
     assert bool(truncated)  # 5 matches > max_matches=2
@@ -146,10 +144,10 @@ def test_join_multi_respects_validity(rng):
         amount=np.array([100, 300, 101, 301, 102], np.uint32),
         keep=np.array([1, 1, 0, 0, 1], np.uint32),
     )
-    lf = facts.lazy(CFG)
+    lf = facts.lazy()
     kept = lf.filter(np.array([1, 1, 0, 0, 1], bool))
     lt, truncated = kept.join_multi(
-        dims.lazy(CFG), on="key", value="amount", other_value="weight",
+        dims.lazy(), on="key", value="amount", other_value="weight",
         max_matches=3,
     )
     assert not bool(truncated)
@@ -164,7 +162,7 @@ def test_join_multi_respects_validity(rng):
 
 def test_sort_by_descending(rng):
     t = _sales(rng, n=1000)
-    got = t.lazy(CFG).sort_by("amount", descending=True).collect().to_numpy()
+    got = t.lazy().sort_by("amount", descending=True).collect().to_numpy()
     order = np.argsort(-np.asarray(t.column("amount")).astype(np.int64),
                        kind="stable")
     for name in ("store", "amount"):
@@ -182,7 +180,7 @@ def test_whole_pipeline_one_jit(rng):
         agg = kept.groupby("store", "amount", "sum")
         return agg.sort_by("sum", descending=True)
 
-    out = query(t.lazy(CFG)).collect().to_numpy()
+    out = query(t.lazy()).collect().to_numpy()
 
     g = np.asarray(t.column("store"))
     v = np.asarray(t.column("amount"))
@@ -202,7 +200,7 @@ def test_whole_pipeline_one_jit(rng):
 
 def test_lazytable_is_pytree(rng):
     t = _sales(rng, n=512)
-    lt = t.lazy(CFG)
+    lt = t.lazy()
     leaves, treedef = jax.tree_util.tree_flatten(lt)
     assert len(leaves) == 4  # 3 columns + count
     lt2 = jax.tree_util.tree_unflatten(treedef, leaves)
@@ -212,7 +210,7 @@ def test_lazytable_is_pytree(rng):
 
 def test_empty_filter_result(rng):
     t = _sales(rng, n=256)
-    lt = t.lazy(CFG).filter(jnp.zeros((256,), jnp.int32))
+    lt = t.lazy().filter(jnp.zeros((256,), jnp.int32))
     agg = lt.groupby("store", "amount", "sum")
     out = agg.collect()
     assert out.num_rows == 0
@@ -225,7 +223,7 @@ def test_all_max_key_groupby(rng):
         k=np.full(n, 0xFFFFFFFF, np.uint32),
         v=np.arange(n, dtype=np.uint32),
     )
-    lt = t.lazy(CFG).filter(np.arange(n) < 40)
+    lt = t.lazy().filter(np.arange(n) < 40)
     out = lt.groupby("k", "v", "sum").collect().to_numpy()
     np.testing.assert_array_equal(out["k"], [0xFFFFFFFF])
     np.testing.assert_array_equal(out["sum"], [np.arange(40).sum()])
@@ -237,7 +235,7 @@ def test_groupby_dense_matches_lazy_sort_path(rng, agg):
     order-isomorphic DECODE and the n_valid gate after a filter) must match
     the sort-based lazy path exactly (ADVICE r2 medium)."""
     t = _sales(rng, n=2000)
-    lt = t.lazy(CFG).filter(t.lazy(CFG).column("returned") == 0)
+    lt = t.lazy().filter(t.lazy().column("returned") == 0)
     got = lt.groupby("store", "amount", agg, bins=128).collect().to_numpy()
     want = lt.groupby("store", "amount", agg).collect().to_numpy()
     np.testing.assert_array_equal(got["store"], want["store"])
@@ -254,7 +252,7 @@ def test_groupby_dense_float32_decodes(rng, agg):
     vals = (rng.standard_normal(n) * 100).astype(np.float32)
     t = Table.from_arrays(store=keys, amount=vals)
     got = (
-        t.lazy(CFG).groupby("store", "amount", agg, bins=128)
+        t.lazy().groupby("store", "amount", agg, bins=128)
         .collect().to_numpy()
     )
     uniq = np.unique(keys)
@@ -266,8 +264,8 @@ def test_groupby_dense_float32_decodes(rng, agg):
 
 def test_lazy_distinct_matches_eager(rng):
     t = _sales(rng, n=2000)
-    got = t.lazy(CFG).distinct("store").collect().to_numpy()
-    want = t.distinct("store", cfg=CFG).to_numpy()
+    got = t.lazy().distinct("store").collect().to_numpy()
+    want = t.distinct("store").to_numpy()
     for name in ("store", "amount", "returned"):
         np.testing.assert_array_equal(got[name], want[name])
 
@@ -277,10 +275,10 @@ def test_lazy_distinct_after_filter(rng):
     t = _sales(rng, n=2000)
     mask = np.asarray(t.column("returned")) == 0
     got = (
-        t.lazy(CFG).filter(mask).distinct("store").collect().to_numpy()
+        t.lazy().filter(mask).distinct("store").collect().to_numpy()
     )
-    want = t.filter(mask.astype(np.int32), cfg=CFG).distinct(
-        "store", cfg=CFG
+    want = t.filter(mask.astype(np.int32)).distinct(
+        "store"
     ).to_numpy()
     for name in ("store", "amount", "returned"):
         np.testing.assert_array_equal(got[name], want[name])
@@ -288,8 +286,8 @@ def test_lazy_distinct_after_filter(rng):
 
 def test_lazy_topk_matches_eager(rng):
     t = _sales(rng, n=2048)
-    got = t.lazy(CFG).top_k("amount", 50).collect().to_numpy()
-    want = t.top_k("amount", 50, cfg=CFG).to_numpy()
+    got = t.lazy().top_k("amount", 50).collect().to_numpy()
+    want = t.top_k("amount", 50).to_numpy()
     for name in ("store", "amount", "returned"):
         np.testing.assert_array_equal(got[name], want[name])
 
@@ -299,7 +297,7 @@ def test_lazy_topk_k_exceeds_count(rng):
     t = _sales(rng, n=2000)
     amounts = np.asarray(t.column("amount"))
     mask = amounts > 490  # few survivors
-    lt = t.lazy(CFG).filter(mask).top_k("amount", 100)
+    lt = t.lazy().filter(mask).top_k("amount", 100)
     out = lt.collect().to_numpy()
     survivors = np.sort(amounts[mask])[::-1]
     kept = survivors[: min(100, survivors.size)]

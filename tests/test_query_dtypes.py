@@ -1,6 +1,6 @@
 """int32/float32 keys through the query surface (VERDICT r4 #7).
 
-The engine's order-preserving encodings (ops/sort._encode_keys) were only
+The engine's order-preserving encodings (ops/core.encode_keys) were only
 reachable via sort_any/sort_pairs_any through round 4; these tests pin the
 round-5 threading through groupby / join / Table / LazyTable.  Reference
 parity note: RadX is uint32-only (SURVEY §2) — dtype coverage is part of
@@ -13,15 +13,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from radx_tpu.config import SortConfig
 from radx_tpu.ops import groupby as groupby_ops
 from radx_tpu.ops import join as join_ops
 from radx_tpu.ops.table import Table
 
-CFG = SortConfig(
-    interpret=True, chunk_rows=8, stable_chunk_rows=8, rider_chunk_rows=8,
-    compact_chunk_rows=8,
-)
 
 
 def _f32_keys(rng, n):
@@ -41,13 +36,13 @@ def test_groupby_typed_keys_sum(rng, maker):
     n = 4 * 128
     keys = maker(rng, n)
     vals = rng.integers(0, 1000, n).astype(np.uint32)
-    uk, agg, ng = groupby_ops.groupby(keys, vals, "sum", CFG)
+    uk, agg, ng = groupby_ops.groupby(keys, vals, "sum")
     ng = int(ng)
     uk = np.asarray(jax.device_get(uk))[:ng]
     agg = np.asarray(jax.device_get(agg))[:ng]
     # NOTE -0.0/+0.0: the engine groups by BIT PATTERN (distinct groups);
     # np.unique merges them, so compare in the encoded domain
-    from radx_tpu.ops.sort import _encode_keys
+    from radx_tpu.ops.core import encode_keys as _encode_keys
 
     enc = np.asarray(jax.device_get(_encode_keys(jnp.asarray(keys))))
     want_enc = np.unique(enc)
@@ -63,14 +58,14 @@ def test_groupby_f32_min_value_and_key(rng):
     n = 4 * 128
     keys = _f32_keys(rng, n)
     vals = rng.standard_normal(n).astype(np.float32)
-    uk, agg, ng = groupby_ops.groupby(keys, vals, "min", CFG)
+    uk, agg, ng = groupby_ops.groupby(keys, vals, "min")
     ng = int(ng)
     uk = np.asarray(jax.device_get(uk))[:ng]
     agg = np.asarray(jax.device_get(agg))[:ng]
     keybits = keys.view(np.uint32)
     want_k = []
     want_min = []
-    from radx_tpu.ops.sort import _encode_keys
+    from radx_tpu.ops.core import encode_keys as _encode_keys
 
     enc = np.asarray(jax.device_get(_encode_keys(jnp.asarray(keys))))
     for e in np.unique(enc):
@@ -86,7 +81,7 @@ def test_groupby_dense_int32_keys(rng):
     n = 4 * 128
     keys = rng.integers(0, 100, n).astype(np.int32)
     vals = rng.integers(0, 1000, n).astype(np.uint32)
-    uk, agg, ng = groupby_ops.groupby_dense(keys, vals, "sum", 128, CFG)
+    uk, agg, ng = groupby_ops.groupby_dense(keys, vals, "sum", 128)
     ng = int(ng)
     uk = np.asarray(jax.device_get(uk))[:ng]
     agg = np.asarray(jax.device_get(agg))[:ng]
@@ -102,7 +97,7 @@ def test_groupby_dense_negative_int32_key_raises(rng):
     keys = np.asarray([-1, 0, 1, 2] * 32, np.int32)
     vals = np.ones(128, np.uint32)
     with pytest.raises(ValueError, match="key < bins"):
-        groupby_ops.groupby_dense(keys, vals, "sum", 128, CFG)
+        groupby_ops.groupby_dense(keys, vals, "sum", 128)
 
 
 @pytest.mark.parametrize("maker", [_f32_keys, _i32_keys])
@@ -114,7 +109,7 @@ def test_join_merge_typed_keys(rng, maker):
     build_vals = np.arange(nb, dtype=np.uint32)
     probe_vals = np.arange(npr, dtype=np.uint32) + 1000
     k, bv, pv, count = join_ops.join_merge(
-        build_keys, build_vals, probe_keys, probe_vals, CFG
+        build_keys, build_vals, probe_keys, probe_vals
     )
     count = int(count)
     k = np.asarray(jax.device_get(k))[:count]
@@ -144,10 +139,10 @@ def test_table_query_f32_keys(rng):
     keys = _f32_keys(rng, n)
     vals = rng.integers(0, 100, n).astype(np.uint32)
     t = Table.from_arrays(k=keys, v=vals)
-    g = t.groupby("k", "v", "sum", cfg=CFG)
+    g = t.groupby("k", "v", "sum")
     assert g.column("k").dtype == jnp.float32
     # sort_by on the f32 key column
-    s = t.sort_by("k", cfg=CFG)
+    s = t.sort_by("k")
     out = np.asarray(jax.device_get(s.column("k")))
     assert np.all(out[:-1] <= out[1:])
 
@@ -156,13 +151,13 @@ def test_lazy_pipeline_f32_keys(rng):
     n = 4 * 128
     keys = _f32_keys(rng, n)
     vals = rng.integers(1, 100, n).astype(np.uint32)
-    t = Table.from_arrays(k=keys, v=vals).lazy(CFG)
+    t = Table.from_arrays(k=keys, v=vals).lazy()
     g = t.filter(t.column("v") > 10).groupby("k", "v", "sum").collect()
     got_k = np.asarray(jax.device_get(g.column("k")))
     got_s = np.asarray(jax.device_get(g.column("sum")))
     assert got_k.dtype == np.float32
     sel = vals > 10
-    from radx_tpu.ops.sort import _encode_keys
+    from radx_tpu.ops.core import encode_keys as _encode_keys
 
     enc = np.asarray(jax.device_get(_encode_keys(jnp.asarray(keys))))[sel]
     want_enc = np.unique(enc)
@@ -180,16 +175,16 @@ def test_lazy_join_i32_keys(rng):
     probe_keys = _i32_keys(rng, npr)
     bt = Table.from_arrays(
         k=build_keys, bv=np.arange(nb, dtype=np.uint32)
-    ).lazy(CFG)
+    ).lazy()
     pt = Table.from_arrays(
         k=probe_keys, pv=np.arange(npr, dtype=np.uint32)
-    ).lazy(CFG)
+    ).lazy()
     j = pt.join(bt, on="k", value="pv", other_value="bv").collect()
     k = np.asarray(jax.device_get(j.column("k")))
     assert k.dtype == np.int32
     # row count parity with the eager typed join
     _, _, _, count = join_ops.join_merge(
         build_keys, np.arange(nb, dtype=np.uint32),
-        probe_keys, np.arange(npr, dtype=np.uint32), CFG,
+        probe_keys, np.arange(npr, dtype=np.uint32),
     )
     assert j.num_rows == int(count)

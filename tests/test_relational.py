@@ -4,24 +4,9 @@ semantics — BASELINE configs 3-4 at correctness scale."""
 import numpy as np
 import pytest
 
-from radx_tpu.config import SortConfig
 from radx_tpu.ops.filter import filter_columns
 from radx_tpu.ops.groupby import groupby
 from radx_tpu.ops.join import join_inner
-
-CFG = SortConfig(chunk_rows=8)
-
-
-@pytest.fixture(autouse=True)
-def _clear_per_test():
-    """This module compiles the largest interpret-mode executables in the
-    suite; keeping them all live in one process has crashed the XLA CPU
-    compiler late in the run (segfault in backend_compile_and_load after
-    ~16 tests).  Clear per-test, not just per-module (conftest)."""
-    yield
-    import jax
-
-    jax.clear_caches()
 
 
 def test_filter_stable(rng):
@@ -29,7 +14,7 @@ def test_filter_stable(rng):
     vals = rng.integers(0, 2**32, n, dtype=np.uint32)
     extra = rng.normal(size=n).astype(np.float32)
     mask = (vals % 3 == 0).astype(np.int32)
-    (v_out, e_out), count = filter_columns(mask, [vals, extra], CFG)
+    (v_out, e_out), count = filter_columns(mask, [vals, extra])
     count = int(count)
     assert count == int(mask.sum())
     np.testing.assert_array_equal(np.asarray(v_out)[:count], vals[mask != 0])
@@ -38,10 +23,10 @@ def test_filter_stable(rng):
 
 def test_filter_all_and_none(rng):
     vals = rng.integers(0, 100, 1000, dtype=np.uint32)
-    (out,), count = filter_columns(np.ones(1000, np.int32), [vals], CFG)
+    (out,), count = filter_columns(np.ones(1000, np.int32), [vals])
     assert int(count) == 1000
     np.testing.assert_array_equal(np.asarray(out), vals)
-    (_, ), count = filter_columns(np.zeros(1000, np.int32), [vals], CFG)
+    (_, ), count = filter_columns(np.zeros(1000, np.int32), [vals])
     assert int(count) == 0
 
 
@@ -50,7 +35,7 @@ def test_groupby(rng, agg):
     n = 20000
     keys = rng.integers(0, 50, n, dtype=np.uint32) * 7919
     vals = rng.integers(0, 1000, n, dtype=np.uint32)
-    uk, out, ng = groupby(keys, vals, agg, CFG)
+    uk, out, ng = groupby(keys, vals, agg)
     ng = int(ng)
     uniq = np.unique(keys)
     assert ng == uniq.size
@@ -72,7 +57,7 @@ def test_join_unique_keys(rng):
     bv = rng.integers(0, 2**32, nb, dtype=np.uint32)
     pk = np.concatenate([bk[:1500], (rng.integers(2**31, 2**32, np_ - 1500)).astype(np.uint32)])
     pv = np.arange(np_, dtype=np.uint32)
-    k, bvo, pvo, valid, trunc = join_inner(bk, bv, pk, pv, max_matches=1, cfg=CFG)
+    k, bvo, pvo, valid, trunc = join_inner(bk, bv, pk, pv, max_matches=1)
     assert not bool(trunc)
     valid = np.asarray(valid)
     build_map = dict(zip(bk.tolist(), bv.tolist()))
@@ -92,7 +77,7 @@ def test_join_merge_matches_numpy(rng):
     bv = rng.integers(0, 2**32, nb, dtype=np.uint32)
     pk = rng.integers(0, 20_000, npr).astype(np.uint32)
     pv = np.arange(npr, dtype=np.uint32)
-    k, b, p, count = join_merge(bk, bv, pk, pv, cfg=CFG)
+    k, b, p, count = join_merge(bk, bv, pk, pv)
     count = int(count)
     bmap = dict(zip(bk.tolist(), bv.tolist()))
     expect = sorted(
@@ -117,7 +102,7 @@ def test_join_merge_duplicate_build_keys_last_wins(rng):
     bv = np.array([70, 71, 90], np.uint32)
     pk = np.array([7, 9, 8], np.uint32)
     pv = np.array([1, 2, 3], np.uint32)
-    k, b, p, count = join_merge(bk, bv, pk, pv, cfg=CFG)
+    k, b, p, count = join_merge(bk, bv, pk, pv)
     count = int(count)
     rows = sorted(
         zip(np.asarray(k)[:count].tolist(), np.asarray(p)[:count].tolist(),
@@ -131,13 +116,13 @@ def test_join_duplicates(rng):
     bv = np.arange(6, dtype=np.uint32)
     pk = np.array([5, 9, 2], dtype=np.uint32)
     pv = np.array([100, 200, 300], dtype=np.uint32)
-    k, bvo, pvo, valid, trunc = join_inner(bk, bv, pk, pv, max_matches=4, cfg=CFG)
+    k, bvo, pvo, valid, trunc = join_inner(bk, bv, pk, pv, max_matches=4)
     assert not bool(trunc)
     v = np.asarray(valid)
     assert v[0].sum() == 3 and v[1].sum() == 2 and v[2].sum() == 0
     assert set(np.asarray(bvo)[0][v[0]].tolist()) == {0, 1, 2}
     # truncation flag
-    *_, trunc = join_inner(bk, bv, pk, pv, max_matches=2, cfg=CFG)
+    *_, trunc = join_inner(bk, bv, pk, pv, max_matches=2)
     assert bool(trunc)
 
 
@@ -148,7 +133,7 @@ def test_groupby_int32_values(rng, agg):
     n = 100
     keys = np.full(n, 0xFFFFFFFF, np.uint32)
     vals = rng.integers(-1000, 1000, n).astype(np.int32)
-    uk, out, ng = groupby(keys, vals, agg, CFG)
+    uk, out, ng = groupby(keys, vals, agg)
     assert int(ng) == 1
     want = vals.min() if agg == "min" else vals.max()
     assert int(np.asarray(out)[0]) == want
@@ -159,7 +144,7 @@ def test_groupby_float32_values(rng, agg):
     n = 5000
     keys = rng.integers(0, 37, n, dtype=np.uint32)
     vals = rng.normal(size=n).astype(np.float32)
-    uk, out, ng = groupby(keys, vals, agg, CFG)
+    uk, out, ng = groupby(keys, vals, agg)
     ng = int(ng)
     uniq = np.unique(keys)
     assert ng == uniq.size
@@ -181,7 +166,7 @@ def test_groupby_mixed_keys_int32_min(rng):
         np.array([0, 5, 0xFFFFFFFF], np.uint32), size=n
     ).astype(np.uint32)
     vals = rng.integers(-(2**31), 2**31, n, dtype=np.int64).astype(np.int32)
-    uk, out, ng = groupby(keys, vals, "min", CFG)
+    uk, out, ng = groupby(keys, vals, "min")
     ng = int(ng)
     uniq = np.unique(keys)
     np.testing.assert_array_equal(np.asarray(uk)[:ng], uniq)
@@ -202,7 +187,7 @@ def test_join_merge_multi_matches_numpy(rng):
     bv = rng.integers(0, 10**6, nb, dtype=np.int64).astype(np.int32)
     pk = rng.integers(0, 1500, np_, dtype=np.uint32)
     pv = rng.integers(0, 10**6, np_, dtype=np.int64).astype(np.int32)
-    k, bvs, pvs, valid, trunc = join_merge_multi(bk, bv, pk, pv, M, CFG)
+    k, bvs, pvs, valid, trunc = join_merge_multi(bk, bv, pk, pv, M)
     k, bvs, pvs, valid = map(np.asarray, (k, bvs, pvs, valid))
 
     by_key = collections.defaultdict(list)
@@ -231,7 +216,7 @@ def test_join_merge_left(rng):
     pk = rng.integers(0, 40_000, npr).astype(np.uint32)  # ~half unmatched
     pv = np.arange(npr, dtype=np.uint32)
     k, b, p, count = join_merge(
-        bk, bv, pk, pv, cfg=CFG, how="left", missing=np.uint32(0)
+        bk, bv, pk, pv, how="left", missing=np.uint32(0)
     )
     count = int(count)
     assert count == npr  # LEFT JOIN: every probe row survives
@@ -258,7 +243,7 @@ def test_join_merge_left_missing_value_and_dup_builds(rng):
     pk = np.array([7, 9, 8], np.uint32)
     pv = np.array([1, 2, 3], np.uint32)
     k, b, p, count = join_merge(
-        bk, bv, pk, pv, cfg=CFG, how="left", missing=np.uint32(0xDEAD)
+        bk, bv, pk, pv, how="left", missing=np.uint32(0xDEAD)
     )
     count = int(count)
     rows = sorted(
@@ -266,6 +251,27 @@ def test_join_merge_left_missing_value_and_dup_builds(rng):
             np.asarray(b)[:count].tolist())
     )
     assert rows == [(7, 1, 71), (8, 3, 0xDEAD), (9, 2, 90)]
+
+
+@pytest.mark.parametrize("missing", [None, -1.25, np.nan])
+def test_join_merge_left_float32_values(rng, missing):
+    """float32 build values come back as themselves, and unmatched rows
+    carry `missing` (default 0.0) — never an int32 bit plane promoted to
+    float (the left join once returned 1.5 as 1.07e9)."""
+    from radx_tpu.ops.join import join_merge
+
+    bk = np.array([3, 5, 8], np.uint32)
+    bv = np.array([1.5, -2.25, 3e-5], np.float32)
+    pk = np.array([5, 4, 3, 8, 9], np.uint32)
+    pv = np.arange(5, dtype=np.int32)
+    k, b, p, count = join_merge(bk, bv, pk, pv, how="left", missing=missing)
+    count = int(count)
+    assert count == 5 and np.asarray(b).dtype == np.float32
+    fill = np.float32(0.0 if missing is None else missing)
+    want_b = np.array([1.5, fill, -2.25, 3e-5, fill], np.float32)
+    np.testing.assert_array_equal(np.asarray(k)[:count], [3, 4, 5, 8, 9])
+    np.testing.assert_array_equal(np.asarray(p)[:count], [2, 1, 0, 3, 4])
+    np.testing.assert_array_equal(np.asarray(b)[:count], want_b)
 
 
 def test_table_join_left(rng):
@@ -280,7 +286,7 @@ def test_table_join_left(rng):
         w=np.array([200, 400], np.uint32),
     )
     out = left.join(right, on="k", value="v", other_value="w",
-                    how="left", cfg=CFG).to_numpy()
+                    how="left").to_numpy()
     rows = sorted(zip(out["k"].tolist(), out["v"].tolist(),
                       out["w"].tolist()))
     assert rows == [(1, 10, 0), (2, 20, 200), (3, 30, 0), (4, 40, 400)]

@@ -1,19 +1,22 @@
-"""Single-chip sort correctness: bitonic Pallas pipeline (interpret mode on
-CPU) and the lax fallback, vs np.sort and the stable-argsort oracle.
+"""Single-chip sort correctness vs np.sort and the stable-argsort oracle,
+for host (NumPy) and device-resident inputs.
 
 The reference never asserts correctness (SURVEY §4); these are the gates the
 reference lacks: exact match, stability with duplicates, payload transport,
 and adversarial distributions (BASELINE config 1).
 """
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from radx_tpu.config import SortConfig
 from radx_tpu.ops import sort as sort_mod
 
-CFG_SMALL = SortConfig(chunk_rows=8)  # many chunks: exercises merge levels
-CFG_LAX = SortConfig(strategy="lax")
+# inputs arrive as host arrays or as device-resident jax arrays
+INPUTS = pytest.mark.parametrize(
+    "put", [np.asarray, jnp.asarray], ids=["host", "device"]
+)
 
 
 def _distributions(rng, n):
@@ -30,28 +33,28 @@ def _distributions(rng, n):
     }
 
 
-@pytest.mark.parametrize("cfg", [CFG_SMALL, CFG_LAX], ids=["bitonic", "lax"])
+@INPUTS
 @pytest.mark.parametrize("n", [1, 2, 100, 1000, 4096, 20000])
-def test_sort_matches_npsort(rng, cfg, n):
+def test_sort_matches_npsort(rng, put, n):
     for name, keys in _distributions(rng, n).items():
-        got = np.asarray(sort_mod.sort(keys, cfg))
+        got = np.asarray(sort_mod.sort(put(keys)))
         np.testing.assert_array_equal(got, np.sort(keys), err_msg=name)
 
 
-@pytest.mark.parametrize("cfg", [CFG_SMALL, CFG_LAX], ids=["bitonic", "lax"])
-def test_argsort_stable(rng, cfg):
+@INPUTS
+def test_argsort_stable(rng, put):
     n = 20000
     keys = rng.integers(0, 64, n, dtype=np.uint32)  # heavy duplication
-    got = np.asarray(sort_mod.argsort(keys, cfg))
+    got = np.asarray(sort_mod.argsort(put(keys)))
     np.testing.assert_array_equal(got, np.argsort(keys, kind="stable"))
 
 
-@pytest.mark.parametrize("cfg", [CFG_SMALL, CFG_LAX], ids=["bitonic", "lax"])
-def test_sort_pairs_stable(rng, cfg):
+@INPUTS
+def test_sort_pairs_stable(rng, put):
     n = 20000
     keys = rng.integers(0, 256, n, dtype=np.uint32)
     payload = np.arange(n, dtype=np.uint32)
-    k, p = sort_mod.sort_pairs(keys, payload, cfg)
+    k, p = sort_mod.sort_pairs(put(keys), put(payload))
     np.testing.assert_array_equal(np.asarray(k), np.sort(keys))
     np.testing.assert_array_equal(
         np.asarray(p), np.argsort(keys, kind="stable")
@@ -62,22 +65,23 @@ def test_sort_pairs_float_payload(rng):
     n = 5000
     keys = rng.integers(0, 2**32, n, dtype=np.uint32)
     payload = rng.normal(size=n).astype(np.float32)
-    k, p = sort_mod.sort_pairs(keys, payload, CFG_SMALL)
+    k, p = sort_mod.sort_pairs(keys, payload)
     order = np.argsort(keys, kind="stable")
     np.testing.assert_array_equal(np.asarray(k), keys[order])
     np.testing.assert_array_equal(np.asarray(p), payload[order])
 
 
 def test_sentinel_keys_not_confused_with_padding(rng):
-    # 0xFFFFFFFF == the padding sentinel; real keys must all survive.
+    # 0xFFFFFFFF is the padding of the lazy and sharded paths; real keys
+    # must all survive.
     n = 3000
     keys = np.full(n, 0xFFFFFFFF, dtype=np.uint32)
     keys[:100] = rng.integers(0, 2**32, 100, dtype=np.uint32)
-    got = np.asarray(sort_mod.sort(keys, CFG_SMALL))
+    got = np.asarray(sort_mod.sort(keys))
     np.testing.assert_array_equal(got, np.sort(keys))
     # stability among max-valued keys
     payload = np.arange(n, dtype=np.uint32)
-    _, p = sort_mod.sort_pairs(keys, payload, CFG_SMALL)
+    _, p = sort_mod.sort_pairs(keys, payload)
     np.testing.assert_array_equal(np.asarray(p), np.argsort(keys, kind="stable"))
 
 
@@ -96,7 +100,7 @@ def test_vs_native_oracle(rng):
     from radx_tpu.oracle import native
 
     keys = rng.integers(0, 2**32, 100_000, dtype=np.uint32)
-    got = np.asarray(sort_mod.sort(keys, SortConfig(chunk_rows=64)))
+    got = np.asarray(sort_mod.sort(keys))
     np.testing.assert_array_equal(got, native.sort_u32(keys))
 
 
@@ -108,8 +112,7 @@ def test_sort_multi_planes(rng):
     p1 = np.arange(n, dtype=np.int32)
     p2 = rng.normal(size=n).astype(np.float32)
     p3 = rng.integers(0, 2**32, n, dtype=np.uint32)
-    cfg = SortConfig(chunk_rows=8)
-    k, (o1, o2, o3) = sort_multi(keys, [p1, p2, p3], cfg)
+    k, (o1, o2, o3) = sort_multi(keys, [p1, p2, p3])
     order = np.argsort(keys, kind="stable")
     np.testing.assert_array_equal(np.asarray(k), keys[order])
     np.testing.assert_array_equal(np.asarray(o1), p1[order])  # stability
@@ -118,95 +121,41 @@ def test_sort_multi_planes(rng):
     assert np.asarray(o2).dtype == np.float32
 
 
-@pytest.mark.parametrize("descending", [False, True])
-def test_merge_sorted_runs(rng, descending):
-    """Unit test for the multi-way run merge (kernels/bitonic): alternating
-    asc/desc pre-sorted runs -> one sorted sequence, skipping all levels at
-    or below the run length."""
-    import jax.numpy as jnp
-    from radx_tpu.kernels import bitonic
-
-    log_run, n_runs = 11, 8
-    run = 1 << log_run
-    n = run * n_runs
-    keys = rng.integers(-(2**31), 2**31, n, dtype=np.int64).astype(np.int32)
-    arranged = keys.reshape(n_runs, run).copy()
-    for r in range(n_runs):
-        arranged[r] = np.sort(arranged[r])
-        if r % 2 == 1:
-            arranged[r] = arranged[r][::-1]
-    planes = [jnp.asarray(arranged.reshape(-1, 128))]
-    out = bitonic.merge_sorted_runs(
-        planes, log_run, num_cmp=1, chunk_rows=8,
-        descending=descending, interpret=True,
-    )
-    got = np.asarray(out[0]).reshape(-1)
-    want = np.sort(keys)
-    if descending:
-        want = want[::-1]
-    np.testing.assert_array_equal(got, want)
-
-
-def test_sort_pairs_assume_unique(rng):
+def test_sort_pairs_unique_keys(rng):
     n = 5000
     keys = rng.permutation(1 << 20)[:n].astype(np.uint32)
     payload = rng.integers(-(2**31), 2**31, n, dtype=np.int64).astype(np.int32)
-    k, p = sort_mod.sort_pairs(keys, payload, CFG_SMALL, assume_unique=True)
+    k, p = sort_mod.sort_pairs(keys, payload)
     order = np.argsort(keys)
     np.testing.assert_array_equal(np.asarray(k), keys[order])
     np.testing.assert_array_equal(np.asarray(p), payload[order])
 
 
-def test_sort_pairs_assume_unique_radix(rng):
-    from radx_tpu.config import SortConfig
+def _stable_jaxpr_sorts(fn, *args):
+    """The sorts in fn's jaxpr (nested jits included), as (num_keys,
+    operand count, is_stable)."""
+    eqns = list(jax.make_jaxpr(fn)(*args).eqns)
+    found = []
+    while eqns:
+        e = eqns.pop()
+        if e.primitive.name == "sort":
+            found.append((e.params["num_keys"], len(e.invars),
+                          e.params["is_stable"]))
+        for v in e.params.values():
+            eqns.extend(getattr(getattr(v, "jaxpr", v), "eqns", []))
+    return found
 
-    cfg = SortConfig(strategy="radix", chunk_rows=64, stable_chunk_rows=64,
-                     interpret=True)
-    n = 64 * 128 * 4
-    keys = rng.permutation(1 << 22)[:n].astype(np.uint32)
-    payload = np.arange(n, dtype=np.int32)
-    k, p = sort_mod.sort_pairs(keys, payload, cfg, assume_unique=True)
-    order = np.argsort(keys)
-    np.testing.assert_array_equal(np.asarray(k), keys[order])
-    np.testing.assert_array_equal(np.asarray(p), payload[order])
 
-
-@pytest.mark.slow
-def test_quad_fused_cross_levels(rng):
-    import jax.numpy as jnp
-    # n=2^18 with 8-row chunks: levels 18 has kk_chunks - m >= 4 cross
-    # distances, so the 16-block quad-fused cross (_cross_stage4_kernel)
-    # is exercised (plus triple/double/single tails); keys-only and the
-    # 3-plane stable path (quad_ok covers both at these chunk sizes).
-    from radx_tpu.kernels import bitonic
-
-    n = 1 << 18
-    keys = rng.integers(0, 2**32, n, dtype=np.uint32)
-    plane = jnp.asarray(
-        (keys ^ np.uint32(0x80000000)).astype(np.int32).reshape(-1, 128)
-    )
-    out = bitonic.sort_planes([plane], 8, 1, interpret=True)[0]
-    got = (
-        np.asarray(out).reshape(-1).astype(np.uint32)
-        ^ np.uint32(0x80000000)
-    )
-    np.testing.assert_array_equal(got, np.sort(keys))
-
-    # stable pairs through the same levels (num_cmp=2, 3 planes)
-    m = 1 << 18
-    k2 = (rng.integers(0, 64, m)).astype(np.uint32)
-    kp = jnp.asarray(
-        (k2 ^ np.uint32(0x80000000)).astype(np.int32).reshape(-1, 128)
-    )
-    ip = jnp.asarray(np.arange(m, dtype=np.int32).reshape(-1, 128))
-    vp = jnp.asarray(
-        rng.integers(0, 2**31, m).astype(np.int32).reshape(-1, 128)
-    )
-    ko, io, vo = bitonic.sort_planes([kp, ip, vp], 8, 2, interpret=True)
-    ko = np.asarray(ko).reshape(-1).astype(np.uint32) ^ np.uint32(0x80000000)
-    io = np.asarray(io).reshape(-1)
-    vo = np.asarray(vo).reshape(-1)
-    order = np.argsort(k2, kind="stable")
-    np.testing.assert_array_equal(ko, k2[order])
-    np.testing.assert_array_equal(io, order.astype(np.int32))
-    np.testing.assert_array_equal(vo, np.asarray(vp).reshape(-1)[order])
+@pytest.mark.parametrize("op", ["argsort", "sort_pairs", "sort_multi"])
+def test_stable_sorts_emit_one_key(op):
+    """Stable sorts must reach XLA as ONE sort of (key, value) with
+    num_keys=1 and is_stable=True: the form XLA's GPU backend rewrites
+    into CUB's radix sort (an iota tiebreak key would defeat it)."""
+    k = jnp.zeros(64, jnp.uint32)
+    v = jnp.zeros(64, jnp.int32)
+    fn = {
+        "argsort": lambda k, v: sort_mod.argsort(k),
+        "sort_pairs": lambda k, v: sort_mod.sort_pairs(k, v),
+        "sort_multi": lambda k, v: sort_mod.sort_multi(k, [v, v]),
+    }[op]
+    assert _stable_jaxpr_sorts(fn, k, v) == [(1, 2, True)]

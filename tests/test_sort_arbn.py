@@ -1,120 +1,42 @@
-"""Arbitrary-N sort without pow2 padding blowup (VERDICT r1 item 7).
+"""Arbitrary-N sorts: no length is special.
 
 The reference handles any N natively via validity ballots
-(RadX2-SM7-DEV/includes.glsl:171-182); we handle it via the binary piece
-decomposition + virtual-tail valley merges.  These tests exercise the jitted
-paths directly at small sizes (the public entry points only route here above
-2^22, where pow2 padding would waste >10%).
+(RadX2-SM7-DEV/includes.glsl:171-182); here every public sort takes any
+length as it stands — no padding to a power of two, no sentinel keys.
+These cases sit just past, just below and between powers of two, and at
+sizes where a padded sort would have wasted most of its work.
 """
 
 import numpy as np
 import pytest
 
-import jax.numpy as jnp
-
-from radx_tpu.config import SortConfig
-from radx_tpu.kernels import bitonic
 from radx_tpu.ops import sort as S
 
-CFG = SortConfig(chunk_rows=8, stable_chunk_rows=8)
+SIZES = [
+    1025, 3000, 3 * 1024 + 17, 7 * 1024 - 1, 11111, 5 * 8 * 128,
+    (1 << 16) + 1, 3 * (1 << 18) + 7, (1 << 20) - 3,
+]
 
 
-def test_decompose_blocks():
-    # exact C multiple, pow2
-    assert S._decompose_blocks(8 * 128 * 4, 8 * 128) == (4, [4])
-    # 5 blocks = 0b101 -> pieces 4 + 1
-    assert S._decompose_blocks(8 * 128 * 5, 8 * 128) == (5, [4, 1])
-    # >5 significant bits rounds up: 0b1000001 (65) -> 0b1000100 (68)
-    blocks, sizes = S._decompose_blocks(8 * 128 * 65, 8 * 128)
-    assert blocks == 68 and sizes == [64, 4]
-    assert len(sizes) <= 5
-    # overhead bound: <= 1/16 + 1 block
-    for n_blocks in (65, 127, 999, 4097):
-        blocks, sizes = S._decompose_blocks(8 * 128 * n_blocks, 8 * 128)
-        assert blocks >= n_blocks
-        assert blocks <= n_blocks * 17 // 16 + 1
-        assert len(sizes) <= 5
-
-
-def test_use_decomposition_routing():
-    cfg = SortConfig()
-    assert not S._use_decomposition(1 << 21, cfg)  # too small
-    assert not S._use_decomposition(1 << 23, cfg)  # exact pow2
-    assert not S._use_decomposition((1 << 23) - 5, cfg)  # <10% pad
-    assert S._use_decomposition((1 << 23) + 1, cfg)  # ~2x pad
-    assert S._use_decomposition(3 * (1 << 22) + 7, cfg)  # 33% pad
-    assert not S._use_decomposition(
-        (1 << 23) + 1, SortConfig(strategy="lax")
-    )
-
-
-@pytest.mark.parametrize("nrows", [8, 24, 40, 72])
-def test_merge_valley_ascending(rng, nrows):
-    n = nrows * 128
-    desc = np.sort(rng.integers(-2**31, 2**31, n // 2).astype(np.int32))[::-1]
-    asc = np.sort(rng.integers(-2**31, 2**31, n - n // 2).astype(np.int32))
-    valley = np.concatenate([desc, asc])
-    out = bitonic.merge_valley_ascending(
-        [jnp.asarray(valley.reshape(nrows, 128))], 8, 1, interpret=True
-    )[0]
-    np.testing.assert_array_equal(
-        np.asarray(out).reshape(-1), np.sort(valley)
-    )
-
-
-def test_merge_valley_multi_plane_ties(rng):
-    """num_cmp=2 lexicographic valley merge with duplicate primary keys."""
-    nrows = 24
-    n = nrows * 128
-    k = rng.integers(0, 7, n).astype(np.int32)
-    t = rng.permutation(n).astype(np.int32)
-    half = n // 2
-    # first half sorted descending by (k, t), second half ascending
-    idx_d = np.lexsort((-t[:half], -k[:half]))
-    kd, td = k[:half][idx_d], t[:half][idx_d]
-    idx_a = np.lexsort((t[half:], k[half:]))
-    ka, ta = k[half:][idx_a], t[half:][idx_a]
-    kv = np.concatenate([kd, ka])
-    tv = np.concatenate([td, ta])
-    outs = bitonic.merge_valley_ascending(
-        [jnp.asarray(kv.reshape(nrows, 128)),
-         jnp.asarray(tv.reshape(nrows, 128))],
-        8, 2, interpret=True,
-    )
-    want = np.lexsort((tv, kv))
-    np.testing.assert_array_equal(
-        np.asarray(outs[0]).reshape(-1), kv[want]
-    )
-    np.testing.assert_array_equal(
-        np.asarray(outs[1]).reshape(-1), tv[want]
-    )
-
-
-@pytest.mark.parametrize(
-    "n", [1025, 3000, 3 * 1024 + 17, 7 * 1024 - 1, 11111, 5 * 8 * 128]
-)
+@pytest.mark.parametrize("n", SIZES)
 def test_sort_arbn_keys(rng, n):
     keys = rng.integers(0, 2**32, n, dtype=np.uint32)
-    got = np.asarray(S._sort_arbn_keys_jit(jnp.asarray(keys), CFG, n))
-    np.testing.assert_array_equal(got, np.sort(keys))
+    np.testing.assert_array_equal(np.asarray(S.sort(keys)), np.sort(keys))
 
 
-def test_sort_arbn_keys_radix_strategy(rng):
-    """Pieces route through the configured engine (radix w/ fallback)."""
-    n = 5 * 64 * 128 + 13
-    cfg = SortConfig(chunk_rows=64, stable_chunk_rows=8, strategy="radix")
-    keys = rng.integers(0, 2**32, n, dtype=np.uint32)
-    got = np.asarray(S._sort_arbn_keys_jit(jnp.asarray(keys), cfg, n))
-    np.testing.assert_array_equal(got, np.sort(keys))
+@pytest.mark.parametrize("n", [5 * 64 * 128 + 13, (1 << 22) + 1])
+def test_sort_arbn_argsort_sizes(rng, n):
+    keys = rng.integers(0, 1000, n, dtype=np.uint32)
+    np.testing.assert_array_equal(
+        np.asarray(S.argsort(keys)), np.argsort(keys, kind="stable")
+    )
 
 
 def test_sort_arbn_stable_pairs(rng):
     n = 3 * 1024 + 300
     keys = rng.integers(0, 50, n).astype(np.uint32)  # many duplicates
     payload = np.arange(n, dtype=np.uint32)
-    k, p = S._sort_arbn_stable_jit(
-        jnp.asarray(keys), jnp.asarray(payload), CFG, n, True
-    )
+    k, p = S.sort_pairs(keys, payload)
     order = np.argsort(keys, kind="stable")
     np.testing.assert_array_equal(np.asarray(k), keys[order])
     np.testing.assert_array_equal(np.asarray(p), payload[order])
@@ -123,17 +45,15 @@ def test_sort_arbn_stable_pairs(rng):
 def test_sort_arbn_argsort(rng):
     n = 5 * 1024 + 1
     keys = rng.integers(0, 100, n).astype(np.uint32)
-    _, perm = S._sort_arbn_stable_jit(jnp.asarray(keys), None, CFG, n, False)
     np.testing.assert_array_equal(
-        np.asarray(perm), np.argsort(keys, kind="stable")
+        np.asarray(S.argsort(keys)), np.argsort(keys, kind="stable")
     )
 
 
 def test_sort_arbn_extremes(rng):
-    """0 and 0xFFFFFFFF keys at a non-pow2 size (sentinel-collision guard)."""
+    """Only 0 and 0xFFFFFFFF keys at a non-pow2 size."""
     n = 2048 + 128
     keys = np.where(
         rng.random(n) < 0.3, np.uint32(0xFFFFFFFF), np.uint32(0)
     ).astype(np.uint32)
-    got = np.asarray(S._sort_arbn_keys_jit(jnp.asarray(keys), CFG, n))
-    np.testing.assert_array_equal(got, np.sort(keys))
+    np.testing.assert_array_equal(np.asarray(S.sort(keys)), np.sort(keys))

@@ -3,10 +3,8 @@
 import numpy as np
 import pytest
 
-from radx_tpu.config import SortConfig
 from radx_tpu.ops.table import Table
 
-CFG = SortConfig(chunk_rows=8, stable_chunk_rows=8)
 
 
 def _table(rng, n=5000):
@@ -20,7 +18,7 @@ def _table(rng, n=5000):
 
 def test_sort_by(rng):
     t, n = _table(rng)
-    out = t.sort_by("id", cfg=CFG).to_numpy()
+    out = t.sort_by("id").to_numpy()
     order = np.argsort(np.asarray(t.column("id")), kind="stable")
     for name in ("id", "group", "value", "score"):
         np.testing.assert_array_equal(out[name], np.asarray(t.column(name))[order])
@@ -28,14 +26,14 @@ def test_sort_by(rng):
 
 def test_sort_by_float_descending(rng):
     t, n = _table(rng)
-    out = t.sort_by("score", descending=True, cfg=CFG).to_numpy()
+    out = t.sort_by("score", descending=True).to_numpy()
     want = np.sort(np.asarray(t.column("score")))[::-1]
     np.testing.assert_array_equal(out["score"], want)
 
 
 def test_sort_by_multi_column(rng):
     t, n = _table(rng)
-    out = t.sort_by(["group", "value"], cfg=CFG).to_numpy()
+    out = t.sort_by(["group", "value"]).to_numpy()
     g = np.asarray(t.column("group"))
     v = np.asarray(t.column("value"))
     # np.lexsort: LAST key is primary; stable
@@ -48,8 +46,7 @@ def test_sort_by_multi_column(rng):
 
 def test_sort_by_multi_mixed_directions(rng):
     t, n = _table(rng)
-    out = t.sort_by(["group", "score"], descending=[False, True],
-                    cfg=CFG).to_numpy()
+    out = t.sort_by(["group", "score"], descending=[False, True]).to_numpy()
     g = np.asarray(t.column("group"))
     s = np.asarray(t.column("score"))
     order = np.lexsort((np.arange(n), -s, g))
@@ -65,7 +62,7 @@ def test_sort_by_multi_stability(rng):
         b=rng.integers(0, 4, n).astype(np.uint32),
         row=np.arange(n, dtype=np.uint32),
     )
-    out = t.sort_by(["a", "b"], cfg=CFG).to_numpy()
+    out = t.sort_by(["a", "b"]).to_numpy()
     a, b = np.asarray(t.column("a")), np.asarray(t.column("b"))
     order = np.lexsort((np.arange(n), b, a))
     np.testing.assert_array_equal(out["row"], order.astype(np.uint32))
@@ -76,7 +73,7 @@ def test_filter_then_groupby(rng):
     g = np.asarray(t.column("group"))
     v = np.asarray(t.column("value"))
     mask = (v % 2 == 0).astype(np.int32)
-    got = t.filter(mask, cfg=CFG).groupby("group", "value", "sum", cfg=CFG).to_numpy()
+    got = t.filter(mask).groupby("group", "value", "sum").to_numpy()
     keep = mask != 0
     uniq = np.unique(g[keep])
     np.testing.assert_array_equal(got["group"], uniq)
@@ -93,7 +90,7 @@ def test_join(rng):
         key=np.array([2, 5, 5, 7, 1], np.uint32),
         amount=np.array([200, 500, 501, 700, 100], np.uint32),
     )
-    out = facts.join(dims, on="key", value="amount", other_value="weight", cfg=CFG)
+    out = facts.join(dims, on="key", value="amount", other_value="weight")
     got = out.to_numpy()
     rows = sorted(zip(got["key"], got["amount"], got["weight"]))
     assert rows == [(1, 100, 10), (2, 200, 20), (5, 500, 50), (5, 501, 50)]
@@ -119,7 +116,7 @@ def test_join_multi_match(rng):
     probe = Table.from_arrays(key=pk, amount=pv)
     out = probe.join(
         build, on="key", value="amount", other_value="weight",
-        max_matches=M, cfg=CFG,
+        max_matches=M,
     ).to_numpy()
     want = sorted(
         (int(pk[i]), int(pv[i]), int(bv[j]))
@@ -142,5 +139,5 @@ def test_join_multi_match_truncation(rng):
     with pytest.raises(ValueError, match="truncated"):
         probe.join(
             build, on="key", value="amount", other_value="weight",
-            max_matches=2, cfg=CFG,
+            max_matches=2,
         )

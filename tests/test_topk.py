@@ -1,21 +1,17 @@
 """top_k selection operator: exact (value, index) order vs a NumPy model,
-across dtypes, duplication levels, k edge cases, and both select/full paths.
+across dtypes, duplication levels and k edge cases.
 """
 
 import numpy as np
 import pytest
 
-from radx_tpu.config import SortConfig
-from radx_tpu.ops import sort as sort_mod
+from radx_tpu.ops import core
 from radx_tpu.ops.topk import top_k
 
-# small chunks: the candidate pass engages already at a few thousand rows
-CFG = SortConfig(chunk_rows=8, topk_chunk_rows=8)
-CFG_LAXLIKE = SortConfig(chunk_rows=8, topk_chunk_rows=64)
 
 
 def _np_topk(keys, k, largest):
-    enc = np.asarray(sort_mod._encode_keys(keys)).astype(np.uint64)
+    enc = np.asarray(core.encode_keys(keys)).astype(np.uint64)
     order = np.argsort(~enc if largest else enc, kind="stable")
     idx = order[:k].astype(np.int32)
     return keys[idx], idx
@@ -26,7 +22,7 @@ def _np_topk(keys, k, largest):
 def test_topk_uint32(rng, k, largest):
     n = 3000
     keys = rng.integers(0, 2**32, n, dtype=np.uint32)
-    vals, idx = top_k(keys, k, largest, CFG)
+    vals, idx = top_k(keys, k, largest)
     ev, ei = _np_topk(keys, k, largest)
     np.testing.assert_array_equal(np.asarray(vals), ev)
     np.testing.assert_array_equal(np.asarray(idx), ei)
@@ -37,7 +33,7 @@ def test_topk_duplicates_tie_order(rng):
     n = 2048
     keys = rng.integers(0, 7, n, dtype=np.uint32)
     for largest in (True, False):
-        vals, idx = top_k(keys, 300, largest, CFG)
+        vals, idx = top_k(keys, 300, largest)
         ev, ei = _np_topk(keys, 300, largest)
         np.testing.assert_array_equal(np.asarray(vals), ev)
         np.testing.assert_array_equal(np.asarray(idx), ei)
@@ -56,7 +52,7 @@ def test_topk_signed_and_float(rng, dtype):
         keys[19] = np.float32(0.0)
         keys[20] = np.float32(-0.0)
     for largest in (True, False):
-        vals, idx = top_k(keys, 200, largest, CFG)
+        vals, idx = top_k(keys, 200, largest)
         ev, ei = _np_topk(keys, 200, largest)
         np.testing.assert_array_equal(np.asarray(idx), ei)
         np.testing.assert_array_equal(
@@ -68,7 +64,7 @@ def test_topk_k_equals_n(rng):
     # k == n forces the full-sort path: result is the whole stable order
     n = 1500
     keys = rng.integers(0, 1000, n, dtype=np.uint32)
-    vals, idx = top_k(keys, n, True, CFG)
+    vals, idx = top_k(keys, n, True)
     ev, ei = _np_topk(keys, n, True)
     np.testing.assert_array_equal(np.asarray(vals), ev)
     np.testing.assert_array_equal(np.asarray(idx), ei)
@@ -78,7 +74,7 @@ def test_topk_nonpow2_padding(rng):
     # padding rows must never surface, even when k is close to n
     n = 1025
     keys = rng.integers(0, 2**32, n, dtype=np.uint32)
-    vals, idx = top_k(keys, 1000, True, CFG)
+    vals, idx = top_k(keys, 1000, True)
     ev, ei = _np_topk(keys, 1000, True)
     np.testing.assert_array_equal(np.asarray(vals), ev)
     np.testing.assert_array_equal(np.asarray(idx), ei)
@@ -93,13 +89,14 @@ def test_topk_k_validation(rng):
         top_k(keys, 11)
 
 
-def test_topk_larger_chunks_same_answer(rng):
-    # both configs (different chunk geometry → different candidate cuts)
-    # must agree exactly
+def test_topk_matches_lax_top_k(rng):
+    # int32 keys with duplicates: same values and tie order as lax.top_k
+    import jax
+
     n = 20000
-    keys = rng.integers(0, 2**20, n, dtype=np.uint32)
-    v1, i1 = top_k(keys, 333, True, CFG)
-    v2, i2 = top_k(keys, 333, True, CFG_LAXLIKE)
+    keys = rng.integers(-(2**20), 2**20, n).astype(np.int32)
+    v1, i1 = top_k(keys, 333, True)
+    v2, i2 = jax.lax.top_k(keys, 333)
     np.testing.assert_array_equal(np.asarray(v1), np.asarray(v2))
     np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))
 
@@ -110,7 +107,7 @@ def test_table_topk(rng):
     n = 2048
     key = rng.integers(0, 500, n, dtype=np.uint32)
     val = np.arange(n, dtype=np.int32)
-    t = Table.from_arrays(k=key, v=val).top_k("k", 50, cfg=CFG)
+    t = Table.from_arrays(k=key, v=val).top_k("k", 50)
     ev, ei = _np_topk(key, 50, True)
     np.testing.assert_array_equal(np.asarray(t.column("k")), ev)
     np.testing.assert_array_equal(np.asarray(t.column("v")), val[ei])
